@@ -1,0 +1,504 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``fastani_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each; any failure exits non-zero:
+
+1. device: name, count, ``nvidia-smi`` name and power limit; build the
+   four CUDA sources (one nvcc each, all at once).
+2. kernels: each of K1-K5 on seeded inputs at the main path's shapes,
+   held bit-equal to its plain PyTorch version on the card; kernel, plain
+   and library times from CUDA events; the bound from bytes and operations.
+3. golden: tests/test_golden_frozen.py's fixtures (seed 2024) through the
+   port's CLI on the card, against tests/golden/one2one.txt and multi.txt.
+4. main path: bench.py's ``mid`` workload (32 genomes x 3 Mbp,
+   all-vs-all, seed 123) through the port's CLI on the card; phase times,
+   genome-pairs/s, peak memory, the counters' maxima, every kernel's
+   launches in this run (zeroed just before it).
+
+Then the kernels table, the nvidia-smi line, and as the last line
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+rest of the repository beside it, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+WORK = ROOT / ".smokework"
+
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s, and
+# the float32 rate outside the tensor cores (an FMA counted as two), used
+# for the kernels' integer ALU operations: the data sheet gives no INT32
+# rate, and Hopper's INT32 lanes are half its FP32 lanes, so the true
+# integer bound is higher than this one
+PEAK_BYTES = 3.35e12
+PEAK_OPS = 67e12
+
+N_GENOMES = 32            # bench.py's mid workload: 32 genomes x 3 Mbp
+GENOME_BP = 3_000_000
+
+REPLACES = {
+    "winnow": "fastani_tpu/ops/pallas_winnow.py:249 (_winnow_row_kernel)",
+    "compact": "fastani_tpu/ops/pallas_compact.py:43 (_compact_block_kernel)",
+    "sort": "fastani_tpu/ops/pallas_sort.py:28 (_sort_block_kernel)",
+    "sort_kv": "fastani_tpu/ops/pallas_sort.py:116 (_sort_kv_block_kernel)",
+    "walk": "fastani_tpu/models/l2walk.py:310 (_walk_pallas_call kernel)",
+}
+SOURCE = {
+    "winnow": "fastani_tpu_torch/csrc/winnow.cu",
+    "compact": "fastani_tpu_torch/csrc/compact.cu",
+    "sort": "fastani_tpu_torch/csrc/sort.cu",
+    "sort_kv": "fastani_tpu_torch/csrc/sort.cu",
+    "walk": "fastani_tpu_torch/csrc/walk.cu",
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
+    """Mean milliseconds per call from CUDA events around ``reps`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def max_abs_err(torch, xs, ys) -> float:
+    err = 0.0
+    for x, y in zip(xs, ys):
+        if x.shape != y.shape:
+            raise AssertionError(f"shape {tuple(x.shape)} != {tuple(y.shape)}")
+        d = (x.to(torch.int64) - y.to(torch.int64)).abs()
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    return err
+
+
+def bound(nbytes: float, nops: float):
+    tb, to = nbytes / PEAK_BYTES * 1e3, nops / PEAK_OPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions at the main path's shapes
+# ---------------------------------------------------------------------------
+
+def genome_bytes(np, rng, n: int):
+    return np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)]
+
+
+# the generators of tests/synth.py (copied: a `tests` package elsewhere on
+# the path may shadow the repository's)
+
+def mutate_genome(np, rng, seq, sub_rate=0.02, indel_rate=0.0005,
+                  indel_max=12):
+    """Point mutations + small indels, like diverged strains."""
+    seq = seq.copy()
+    n_sub = int(len(seq) * sub_rate)
+    if n_sub:
+        pos = rng.choice(len(seq), size=n_sub, replace=False)
+        seq[pos] = genome_bytes(np, rng, n_sub)
+    if indel_rate > 0:
+        parts = []
+        cur = 0
+        n_ind = int(len(seq) * indel_rate)
+        cuts = np.sort(rng.choice(len(seq), size=n_ind, replace=False))
+        for c in cuts:
+            parts.append(seq[cur:c])
+            if rng.random() < 0.5:
+                parts.append(genome_bytes(np, rng,
+                                          int(rng.integers(1, indel_max))))
+                cur = c
+            else:
+                cur = min(len(seq), c + int(rng.integers(1, indel_max)))
+        parts.append(seq[cur:])
+        seq = np.concatenate(parts)
+    return seq
+
+
+def write_fasta(path, contigs, line_width: int = 70) -> None:
+    with open(path, "wb") as f:
+        for name, seq in contigs:
+            f.write(b">" + name.encode() + b"\n")
+            b = seq.tobytes()
+            for i in range(0, len(b), line_width):
+                f.write(b[i: i + line_width] + b"\n")
+
+
+def check_kernels(torch, np):
+    from fastani_tpu_torch.config import Parameters, scale_caps
+    from fastani_tpu_torch.index import device_build
+    from fastani_tpu_torch.models import l2walk
+    from fastani_tpu_torch.ops import compact, sort, winnow
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    # the main path's widths at 32 reference genomes (run_fast's caps)
+    p = Parameters().finalize()
+    scale_caps(32, p)
+    k, w, L, B = p.kmer_size, p.window_size, p.frag_len, p.frag_batch
+    scap, hits_cap, cand_cap = p.sketch_cap, p.hits_cap, p.cand_cap
+    unit_cap = B * (int(1.7 * 32) + 8)     # run_fast's unit_factor
+    U, T = min(512, B), 2 * p.l2_entry_cap + 1   # L2 chunk of events
+    results = {}
+
+    def record(name, shape, outs_k, outs_p, fn_k, fn_p, nbytes, nops,
+               fn_lib=None, reps=20, plain_reps=3, nbytes_u32=None):
+        """``nbytes`` counts u32 values in the int64 words the kernels
+        take; ``nbytes_u32`` counts them at 4 bytes, as an int32 view
+        would move them."""
+        err = max_abs_err(torch, outs_k, outs_p)
+        if err != 0:
+            raise AssertionError(f"{name} at {shape}: kernel differs from "
+                                 f"its plain version (max abs err {err})")
+        ms = time_ms(torch, fn_k, reps)
+        plain_ms = time_ms(torch, fn_p, plain_reps)
+        lib_ms = time_ms(torch, fn_lib, reps) if fn_lib else None
+        b_ms, b_by = bound(nbytes, nops)
+        row = dict(name=name, shape=shape, max_abs_err=err, kernel_ms=ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=lib_ms)
+        if nbytes_u32 is not None:
+            row["bound_u32_ms"], row["bound_u32_by"] = bound(nbytes_u32, nops)
+        emit({"phase": "kernel", **row})
+        results[name] = row
+
+    # K1 winnow: the index build's segment rows (2048 rows, consecutive
+    # rows of 3 Mbp contigs chained) and the fragment sketch (B, w-1+L)
+    genome = genome_bytes(np, rng, 36_000_000)
+    rows_l, ctg_l, base_l, len_l = [], [], [], []
+    for c in range(12):
+        seq = genome[c * 3_000_000:(c + 1) * 3_000_000]
+        r, b = device_build.segment_rows(seq, k, w)
+        rows_l.append(r)
+        ctg_l.append(np.full(len(r), c, np.int32))
+        base_l.append(b)
+        len_l.append(np.full(len(r), len(seq), np.int32))
+    as_t = lambda a: torch.as_tensor(np.concatenate(a)[:B], device=dev)
+    rows, ctg, base, tl = as_t(rows_l), as_t(ctg_l), as_t(base_l), as_t(len_l)
+    run_k = lambda: winnow.winnow_rows(rows, ctg, base, tl, k, w)
+    run_p = lambda: winnow.winnow_rows_plain(rows, ctg, base, tl, k, w)
+    ek, hk, _ = run_k()
+    ep, hp = run_p()
+    err = max_abs_err(torch, [ek, hk], [ep, hp])
+    if err != 0:
+        raise AssertionError(f"winnow (index build rows) differs: {err}")
+    emit({"phase": "kernel", "name": "winnow", "shape": list(rows.shape),
+          "max_abs_err": err, "kernel_ms": time_ms(torch, run_k, 5)})
+    starts = rng.integers(0, len(genome) - L, B)
+    frags = np.stack([genome[s:s + L] for s in starts])
+    frows = torch.as_tensor(np.concatenate(
+        [np.zeros((B, w - 1), np.uint8), frags], axis=1), device=dev)
+    fctg = torch.arange(B, dtype=torch.int32, device=dev)
+    fbase = torch.zeros(B, dtype=torch.int32, device=dev)
+    flen = torch.full((B,), L, dtype=torch.int32, device=dev)
+    n_pos = B * (L - k + 1)
+    record("winnow", list(frows.shape),
+           list(winnow.winnow_rows(frows, fctg, fbase, flen, k, w)[:2]),
+           list(winnow.winnow_rows_plain(frows, fctg, fbase, flen, k, w)),
+           lambda: winnow.winnow_rows(frows, fctg, fbase, flen, k, w),
+           lambda: winnow.winnow_rows_plain(frows, fctg, fbase, flen, k, w),
+           nbytes=frows.numel() + 12 * B + 9 * n_pos,
+           # per position: two murmur3 (~72 32-bit ops each), packing two
+           # k-byte keys (4k), the w-long window scan (2w)
+           nops=(L + w - 1 - k + 1) * B * (2 * 72 + 4 * k) + n_pos * 2 * w)
+    sk_e, sk_h, _ = winnow.winnow_rows(frows, fctg, fbase, flen, k, w)
+
+    # K2 compaction at each main-path shape; timed at the L1 leader shape
+    def k2_case(flags, pays, width):
+        ok = compact.compact_rows(flags, pays, width)
+        op = compact.compact_rows_plain(flags, pays, width)
+        return ok, op
+
+    e2 = ek.reshape(-1, 1024)
+    h2 = hk.reshape(-1, 1024)
+    cases = [
+        (e2, [(h2, 0xFFFFFFFF), (h2.to(torch.int32), 2 ** 30)], 256),
+        (sk_e, [(torch.where(sk_e, sk_h, 0xFFFFFFFF), 0xFFFFFFFF)], 2048),
+        (torch.rand(B, 2048, device=dev) < 0.12,
+         [(torch.randint(0, 2 ** 32, (B, 2048), device=dev), 0xFFFFFFFF)],
+         scap),
+        (torch.rand(1, B * cand_cap, device=dev) < 0.25,
+         [(torch.randint(0, 2 ** 20, (1, B * cand_cap), dtype=torch.int32,
+                         device=dev), 0)] * 4, unit_cap),
+    ]
+    for flags, pays, width in cases:
+        ok, op = k2_case(flags, pays, width)
+        err = max_abs_err(torch, ok, op)
+        if err != 0:
+            raise AssertionError(f"compact at {tuple(flags.shape)} differs")
+    lflags = torch.rand(B, hits_cap, device=dev) < 0.004
+    lpays = [(torch.randint(0, 40, (B, hits_cap), device=dev), -1),
+             (torch.randint(0, 3_000_000, (B, hits_cap), device=dev), 0),
+             (torch.arange(hits_cap, device=dev).expand(B, -1).contiguous(),
+              hits_cap)]
+    ok, op = k2_case(lflags, lpays, cand_cap)
+    record("compact", [B, hits_cap, 3], list(ok), list(op),
+           lambda: compact.compact_rows(lflags, lpays, cand_cap),
+           lambda: compact.compact_rows_plain(lflags, lpays, cand_cap),
+           nbytes=B * hits_cap * (1 + 3 * 8) + B * cand_cap * 3 * 8,
+           nops=B * hits_cap * 4,
+           nbytes_u32=B * hits_cap * (1 + 3 * 4) + B * cand_cap * 3 * 4)
+
+    # K3 row sort: the sketch row (B, 2048) and the L1 hit row (B, hits_cap)
+    def n_cmp(R, n):
+        N = 1 << (n - 1).bit_length()
+        lg = N.bit_length() - 1
+        return R * (N // 2) * lg * (lg + 1) // 2
+
+    sk = torch.randint(0, 2 ** 32, (B, 2048), device=dev)
+    if max_abs_err(torch, [sort.sort_rows_u32(sk)],
+                   [sort.sort_rows_u32_plain(sk)]) != 0:
+        raise AssertionError("sort (B, 2048) differs")
+    hits = torch.randint(0, 2 ** 32, (B, hits_cap), device=dev)
+    hits[:, 5000:] = 0xFFFFFFFF                    # UMAX pads, tied
+    record("sort", [B, hits_cap], [sort.sort_rows_u32(hits)],
+           [sort.sort_rows_u32_plain(hits)],
+           lambda: sort.sort_rows_u32(hits),
+           lambda: sort.sort_rows_u32_plain(hits),
+           nbytes=hits.numel() * 16, nops=n_cmp(B, hits_cap) * 2,
+           fn_lib=lambda: torch.sort(hits, dim=-1),
+           nbytes_u32=hits.numel() * 8)
+
+    # K4 key-value sort: the L2 event merge (unit_chunk, 2 * l2_entry_cap + 1)
+    kv_keys = torch.randint(0, 2 ** 30, (U, T), device=dev)
+    kv_keys[:, 1500:] = (1 << 28) << 2             # clamped pads, tied
+    kv_pay = torch.randint(0, 2 ** 32, (U, T), device=dev)
+    record("sort_kv", [U, T], list(sort.sort_rows_u32_kv(kv_keys, kv_pay)),
+           list(sort.sort_rows_u32_kv_plain(kv_keys, kv_pay)),
+           lambda: sort.sort_rows_u32_kv(kv_keys, kv_pay),
+           lambda: sort.sort_rows_u32_kv_plain(kv_keys, kv_pay),
+           nbytes=U * T * 32, nops=n_cmp(U, T) * 2,
+           fn_lib=lambda: torch.sort(kv_keys, dim=-1, stable=True),
+           nbytes_u32=U * T * 16)
+
+    # K5 walk: (U, T) event streams with scap 320
+    ev = dict(dn=torch.randint(-1, 2, (U, T), dtype=torch.int32, device=dev),
+              dq=torch.randint(-1, 2, (U, T), dtype=torch.int32, device=dev),
+              jr=torch.randint(0, scap + 1, (U, T), dtype=torch.int32,
+                               device=dev),
+              jm=torch.randint(0, scap, (U, T), dtype=torch.int32, device=dev),
+              scored=torch.randint(0, 2, (U, T), dtype=torch.int32,
+                                   device=dev),
+              pos=torch.randint(0, 3_000_000, (U, T), dtype=torch.int32,
+                                device=dev))
+    s_u = torch.randint(1, scap + 1, (U,), dtype=torch.int32, device=dev)
+    n_ev = torch.randint(T // 2, T + 1, (U,), dtype=torch.int32, device=dev)
+    need = float((n_ev.long() * s_u.long()).sum())
+    record("walk", [U, T, scap], list(l2walk.walk(ev, s_u, n_ev, scap)),
+           list(l2walk.walk_plain(ev, s_u, n_ev, scap)),
+           lambda: l2walk.walk(ev, s_u, n_ev, scap),
+           lambda: l2walk.walk_plain(ev, s_u, n_ev, scap),
+           nbytes=float(n_ev.sum()) * 24 + U * 20,
+           # per event, per query rank below s: two updates, two compares
+           nops=need * 4, reps=5, plain_reps=1)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 3: frozen goldens
+# ---------------------------------------------------------------------------
+
+def run_golden(np):
+    from fastani_tpu_torch import cli
+
+    wd = WORK / "golden"
+    wd.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(2024)
+    base = genome_bytes(np, rng, 150_000)
+    strain_a = mutate_genome(np, rng, base, sub_rate=0.02, indel_rate=0.0003)
+    strain_b = mutate_genome(np, rng, base, sub_rate=0.05, indel_rate=0.0005)
+    multi = [
+        ("m_ctg1", mutate_genome(np, rng, base[:80_000], 0.01)),
+        ("m_short", genome_bytes(np, rng, 800)),
+        ("m_ctg2", mutate_genome(np, rng, base[80_000:], 0.03)),
+    ]
+    write_fasta(wd / "base.fa", [("base_ctg", base)])
+    write_fasta(wd / "strainA.fa", [("sA_ctg", strain_a)])
+    write_fasta(wd / "strainB.fa", [("sB_ctg", strain_b)])
+    write_fasta(wd / "multi.fa", multi)
+    (wd / "refs.txt").write_text("strainA.fa\nstrainB.fa\n")
+    cwd = os.getcwd()
+    os.chdir(wd)
+    try:
+        for args, golden in (
+                (["-q", "base.fa", "-r", "strainA.fa", "-o", "g1.txt"],
+                 "one2one.txt"),
+                (["-q", "multi.fa", "--rl", "refs.txt", "-o", "g2.txt"],
+                 "multi.txt")):
+            if cli.main(args + ["--device", "cuda"]) != 0:
+                raise AssertionError(f"CLI failed: {args}")
+            ours = [ln.split("\t") for ln in open(args[-1]).read().split("\n")
+                    if ln]
+            want = [ln.split("\t") for ln in
+                    (ROOT / "tests" / "golden" / golden).read_text().split("\n")
+                    if ln]
+            if sorted(r[:2] for r in ours) != sorted(r[:2] for r in want):
+                raise AssertionError(f"{golden}: rows differ: {ours} vs {want}")
+            by = {tuple(r[:2]): r for r in want}
+            dev_max = 0.0
+            for r in ours:
+                g = by[tuple(r[:2])]
+                if r[3:] != g[3:]:
+                    raise AssertionError(f"{golden}: counts differ {r} vs {g}")
+                dev_max = max(dev_max, abs(float(r[2]) - float(g[2])))
+            if dev_max > 0.1:
+                raise AssertionError(f"{golden}: ANI off by {dev_max}")
+            emit({"phase": "golden", "golden": golden, "rows": len(ours),
+                  "max_ani_diff": dev_max})
+    finally:
+        os.chdir(cwd)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path at a real size
+# ---------------------------------------------------------------------------
+
+def build_workload(np, workdir: pathlib.Path, n_genomes: int, size: int):
+    """bench.py's generator (seed 123): one random genome, each genome a
+    copy with 1%..5% substitutions and small indels."""
+    rng = np.random.default_rng(123)
+    base = genome_bytes(np, rng, size)
+    paths = []
+    for i in range(n_genomes):
+        g = mutate_genome(np, rng, base,
+                          0.01 + 0.04 * (i / max(n_genomes - 1, 1)),
+                          indel_rate=0.0002)
+        p = workdir / f"g{i}.fa"
+        write_fasta(p, [(f"g{i}", g)])
+        paths.append(str(p))
+    return paths
+
+
+def run_main_path(torch, np, n_genomes: int, size: int):
+    from fastani_tpu_torch import cli
+    from fastani_tpu_torch.config import Parameters, scale_caps
+    from fastani_tpu_torch.models import jitmap
+    from fastani_tpu_torch.ops import cuda as kc
+
+    wd = WORK / "mid"
+    wd.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    paths = build_workload(np, wd, n_genomes, size)
+    emit({"phase": "workload", "genomes": n_genomes, "genome_bp": size,
+          "frag_len": 3000, "seed": 123, "gen_s": time.time() - t0})
+    genomes = wd / "genomes.txt"
+    genomes.write_text("\n".join(paths) + "\n")
+    out = wd / "mid.txt"
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kc.reset_launches()
+    t0 = time.time()
+    rc = cli.main(["--ql", str(genomes), "--rl", str(genomes), "-o", str(out),
+                   "--matrix", "--device", "cuda"], stats=stats)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    if rc != 0:
+        raise AssertionError(f"CLI exited with {rc}")
+    launches = dict(kc.LAUNCHES)
+    n_pairs = n_genomes * n_genomes
+    lines = [ln for ln in out.read_text().split("\n") if ln]
+    ani = [float(ln.split("\t")[2]) for ln in lines]
+    matrix_rows = len(pathlib.Path(f"{out}.matrix").read_text().splitlines())
+    caps = Parameters().finalize()
+    scale_caps(n_genomes, caps)
+    row = {"phase": "main_path", "genomes": n_genomes, "pairs": n_pairs,
+           "wall_s": wall, "pairs_per_s": n_pairs / wall,
+           "t_index_build_s": stats["t_index_build"],
+           "t_mapper_init_s": stats["t_mapper_init"],
+           "t_map_fold_s": stats["t_map_fold"], "t_write_s": stats["t_write"],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "batches": stats["batches"], "fallback_frags": stats["fallback_frags"],
+           "counters_max": {k: stats[k] for k in jitmap.COUNT_NAMES},
+           "launches": launches, "tsv_rows": len(lines),
+           "ani_min": min(ani) if ani else None,
+           "ani_max": max(ani) if ani else None,
+           "matrix_rows": matrix_rows,
+           "caps": {"hits_cap": caps.hits_cap, "cand_cap": caps.cand_cap,
+                    "l2_entry_cap": caps.l2_entry_cap,
+                    "sketch_cap": caps.sketch_cap}}
+    emit(row)
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    if stats["fallback_frags"]:
+        raise AssertionError(f"{stats['fallback_frags']} fragments fell back")
+    if len(lines) != n_pairs or matrix_rows != n_genomes + 1:
+        raise AssertionError(f"{len(lines)} TSV rows for {n_pairs} pairs, "
+                             f"{matrix_rows} matrix lines")
+    if not all(75.0 < a <= 100.0 for a in ani):
+        raise AssertionError(f"ANI out of range: {min(ani)}..{max(ani)}")
+    return launches
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from fastani_tpu_torch.ops import cuda as kc
+
+    t_all = time.time()
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    t0 = time.time()
+    built = kc.build_all()
+    emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "build_s": time.time() - t0, "built": built})
+
+    kernels = check_kernels(torch, np)
+    run_golden(np)
+    launches = run_main_path(torch, np, N_GENOMES, GENOME_BP)
+
+    table = []
+    for name in kc.KERNELS:
+        r = kernels[name]
+        table.append({"name": name, "route": "cuda", "source": SOURCE[name],
+                      "replaces": REPLACES[name], "launches": launches[name],
+                      "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                      "bound_by": r["bound_by"],
+                      "library_ms": r["library_ms"]})
+    emit({"kernels": table})
+    for sub in ("golden", "mid"):
+        shutil.rmtree(WORK / sub, ignore_errors=True)
+    print(f"total_s {time.time() - t_all:.1f}", flush=True)
+    print(nvidia_smi(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

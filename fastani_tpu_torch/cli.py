@@ -1,0 +1,127 @@
+"""Command line of the port, with the reference fastANI flags
+(src/map/include/parseCmdArgs.hpp:114-234) plus ``--device``:
+
+    python -m fastani_tpu_torch.cli -q genome1.fa -r genome2.fa -o out.txt
+    python -m fastani_tpu_torch.cli --ql queries.txt --rl refs.txt -o out.txt --matrix
+
+It runs the fast path (``models.pipeline.run_fast``) on ``--device``
+(default ``cuda``).  ``--visualize`` and ``-s`` need the exact path, which
+is not ported yet, and are refused.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import List, Optional
+
+from fastani_tpu_torch import __version__
+from fastani_tpu_torch.config import Parameters
+
+
+def parse_file_list(path: str) -> List[str]:
+    try:
+        with open(path) as f:
+            return [line.strip() for line in f if line.strip()]
+    except OSError:
+        print(f"ERROR, fastani_tpu_torch, could not open {path}", file=sys.stderr)
+        raise SystemExit(1)
+
+
+def validate_input_files(paths: List[str]) -> None:
+    """Every genome file must open and be non-empty (reference:
+    parseCmdArgs.hpp:59-90)."""
+    import gzip
+    import os
+
+    bad = False
+    for p in paths:
+        try:
+            opener = gzip.open if p.endswith(".gz") else open
+            if os.path.getsize(p) == 0:
+                raise OSError("file is empty")
+            with opener(p, "rb") as f:
+                if not f.read(1):
+                    raise OSError("file is empty")
+        except OSError as e:
+            print(f"ERROR, fastani_tpu_torch, input file {p}: "
+                  f"{e.strerror or e}", file=sys.stderr)
+            bad = True
+    if bad:
+        raise SystemExit(1)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="fastani_tpu_torch",
+        description="Alignment-free whole-genome ANI on an NVIDIA GPU "
+                    "(capabilities of ParBLiSS/FastANI)")
+    p.add_argument("-r", "--ref", help="reference genome (fasta/fastq)[.gz]")
+    p.add_argument("--rl", "--refList", dest="refList",
+                   help="file with list of reference genomes, one per line")
+    p.add_argument("-q", "--query", help="query genome (fasta/fastq)[.gz]")
+    p.add_argument("--ql", "--queryList", dest="queryList",
+                   help="file with list of query genomes, one per line")
+    p.add_argument("-k", "--kmer", type=int, default=16, help="kmer size <= 16 [16]")
+    p.add_argument("-t", "--threads", type=int, default=1,
+                   help="accepted for compatibility; the output does not depend on it")
+    p.add_argument("--fragLen", type=int, default=3000, help="fragment length [3000]")
+    p.add_argument("--minFraction", type=float, default=0.2,
+                   help="minimum shared-genome fraction for trusting ANI [0.2]")
+    p.add_argument("--maxRatioDiff", type=float, default=100.0,
+                   help="max sanity-check ratio difference [100.0] (with -s)")
+    p.add_argument("--visualize", action="store_true",
+                   help="output mappings for visualization (not ported yet)")
+    p.add_argument("--matrix", action="store_true",
+                   help="also output phylip-style lower-triangular matrix")
+    p.add_argument("-o", "--output", help="output file name")
+    p.add_argument("-s", "--sanityCheck", action="store_true",
+                   help="run sanity check (not ported yet)")
+    p.add_argument("-v", "--version", action="store_true", help="show version")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on [cuda]; 'cpu' runs the plain "
+                        "PyTorch versions of the kernels")
+    return p
+
+
+def main(argv=None, stats: Optional[dict] = None) -> int:
+    """Run the CLI; ``stats``, when given, receives ``run_fast``'s phase
+    wall times and counters."""
+    args = build_parser().parse_args(argv)
+    if args.version:
+        print(f"fastani_tpu_torch {__version__}")
+        return 0
+    if not args.ref and not args.refList:
+        print("Provide reference file(s)", file=sys.stderr)
+        return 1
+    if not args.query and not args.queryList:
+        print("Provide query file(s)", file=sys.stderr)
+        return 1
+    if not args.output:
+        print("Provide output file (-o)", file=sys.stderr)
+        return 1
+    if args.visualize or args.sanityCheck:
+        print("ERROR, fastani_tpu_torch, --visualize and -s need the exact "
+              "path, which is not ported yet (use fastani_tpu)",
+              file=sys.stderr)
+        return 1
+    params = Parameters(
+        kmer_size=args.kmer,
+        frag_len=args.fragLen,
+        min_fraction=args.minFraction,
+        matrix_output=args.matrix,
+        out_file_name=args.output,
+        ref_sequences=[args.ref] if args.ref else parse_file_list(args.refList),
+        query_sequences=([args.query] if args.query
+                         else parse_file_list(args.queryList)),
+    )
+    validate_input_files(list(params.query_sequences)
+                         + list(params.ref_sequences))
+    from fastani_tpu_torch.models import pipeline
+
+    pipeline.run_fast(params, device=args.device, stats=stats)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

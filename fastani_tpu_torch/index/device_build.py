@@ -1,0 +1,169 @@
+"""Reference index build on the device (counterpart of
+``fastani_tpu/index/device_build.py::build_device``).
+
+    1. cut every contig into haloed segment rows (host, numpy);
+    2. K1 winnow the rows (ops/winnow.py), many contigs per launch — the
+       emit selection carries across a contig's rows inside the kernel;
+    3. K2 compact each 1024-position piece of the output to ``_CAP_R``
+       slots, with its count (ops/compact.py);
+    4. assemble: exclusive cumsum of the piece counts and one scatter into
+       arrays padded to ``out_size`` (hash UMAX, seqId/wpos 2^30);
+    5. stable sort by hash: the lookup (occ) view and ``occ_order``.
+
+The result equals the JAX package's device build array for array (same
+entries, same padding, same ``out_size``).  Overflow is checked on every
+build: a piece with more than ``_CAP_R`` emits triggers a rebuild with the
+cap at the piece length, which cannot overflow, and an ``out_size`` too
+small for the entries is grown to fit (replaces skch::Sketch::build+index,
+winSketch.hpp:124-193).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from fastani_tpu_torch.config import Parameters
+from fastani_tpu_torch.io import fasta
+from fastani_tpu_torch.ops import compact, hashing, winnow
+from fastani_tpu_torch.ops.xputils import PINF, UMAX
+
+_ROW = 1 << 10            # compaction piece length
+_CAP_R = _ROW // 4        # per-piece minimizer cap (density ~2/(w+1))
+_SEG = 17 * _ROW          # scored positions per segment row
+_FLUSH_ROWS = 2048        # segment rows per winnow launch (~35 Mbp)
+_MARGIN = 2048            # sentinel entries past the last (L2 window slices)
+
+
+def _pow2(x: int, floor: int = 128) -> int:
+    return max(floor, 1 << max(int(x) - 1, 1).bit_length())
+
+
+def segment_rows(seq: np.ndarray, k: int, w: int, seg: int = _SEG):
+    """Haloed segment rows of one contig: row i covers global positions
+    [i*seg - (w-1), i*seg - (w-1) + W), W = (w-1) + seg + (k-1), zero
+    outside the contig.  Returns (rows (n, W) uint8, base (n,) int32)."""
+    halo = w - 1
+    L = len(seq)
+    n = -(-L // seg)
+    W = halo + seg + k - 1
+    padded = np.zeros(halo + n * seg + k - 1, np.uint8)
+    padded[halo: halo + L] = seq
+    rows = np.lib.stride_tricks.sliding_window_view(padded, W)[::seg][:n]
+    return np.ascontiguousarray(rows), np.arange(n, dtype=np.int32) * seg
+
+
+def build_device(cls, params: Parameters,
+                 ref_files: Optional[Sequence[str]] = None, device="cuda"):
+    """Device-resident ReferenceIndex build (``cls`` is ReferenceIndex)."""
+    index = _build(cls, params, ref_files, device, _CAP_R)
+    if index.overflow:
+        # a piece over the per-piece cap (degenerate repeats): rebuild with
+        # the cap at the piece length, which cannot overflow
+        index = _build(cls, params, ref_files, device, _ROW)
+    return index
+
+
+def _build(cls, params, ref_files, device, cap: int):
+    from fastani_tpu_torch.index.sketch import ContigInfo
+
+    files = list(ref_files if ref_files is not None else params.ref_sequences)
+    k, w = params.kmer_size, params.window_size
+    metadata: List[ContigInfo] = []
+    seq_by_file: List[int] = []
+    pieces = []                  # (hash (P, cap), wpos (P, cap), count (P,))
+    piece_sid = []               # contig id per piece, host
+    pend_rows, pend_sid, pend_base, pend_len = [], [], [], []
+    overflow = False
+
+    def flush():
+        nonlocal overflow
+        if not pend_rows:
+            return
+        rows = torch.as_tensor(np.concatenate(pend_rows), device=device)
+        sid = np.concatenate(pend_sid)
+        as_t = lambda a: torch.as_tensor(np.concatenate(a), device=device)
+        emit, h, wp = winnow.winnow_rows(rows, as_t(pend_sid),
+                                         as_t(pend_base), as_t(pend_len),
+                                         k, w)
+        per = _SEG // _ROW
+        e2 = emit.reshape(-1, _ROW)
+        cnt = e2.sum(dim=1)
+        hc, wc = compact.compact_rows(
+            e2, [(h.reshape(-1, _ROW), UMAX), (wp.reshape(-1, _ROW), PINF)],
+            width=cap)
+        pieces.append((hc, wc, cnt))
+        piece_sid.append(np.repeat(sid, per))
+        overflow |= bool((cnt > cap).any())
+        pend_rows.clear()
+        pend_sid.clear()
+        pend_base.clear()
+        pend_len.clear()
+
+    seq_counter = 0
+    n_pend = 0
+    for path in files:
+        for name, seq in fasta.read_sequences(path):
+            L = len(seq)
+            metadata.append(ContigInfo(name, L))
+            if not (L < w or L < k):
+                rows, base = segment_rows(hashing.upper_np(seq), k, w)
+                if n_pend and n_pend + len(rows) > _FLUSH_ROWS:
+                    flush()
+                    n_pend = 0
+                pend_rows.append(rows)
+                pend_sid.append(np.full(len(rows), seq_counter, np.int32))
+                pend_base.append(base)
+                pend_len.append(np.full(len(rows), L, np.int32))
+                n_pend += len(rows)
+            seq_counter += 1
+        seq_by_file.append(seq_counter)
+    flush()
+
+    if pieces:
+        h = torch.cat([p[0] for p in pieces])
+        wp = torch.cat([p[1] for p in pieces])
+        cnt = torch.cat([p[2] for p in pieces]).to(torch.int64)
+        sid = torch.as_tensor(np.concatenate(piece_sid), device=device)
+    else:
+        h = torch.full((1, cap), UMAX, dtype=torch.int64, device=device)
+        wp = torch.full((1, cap), PINF, dtype=torch.int32, device=device)
+        cnt = torch.zeros(1, dtype=torch.int64, device=device)
+        sid = torch.zeros(1, dtype=torch.int32, device=device)
+    cnt = cnt.clamp(max=cap)
+    total = int(cnt.sum())
+
+    # output size from the total sequence length: winnow density is close
+    # to 2/(w+1), so bases * density * 1.15 + slack bounds the entry count
+    # (the JAX package's formula, so both builds pad alike); the margin
+    # past the last entry lets L2 read contiguous entry windows
+    P = h.shape[0]
+    total_bases = sum(c.length for c in metadata)
+    est = int(total_bases * (2.0 / (w + 1)) * 1.15) + 4096
+    out_size = min(_pow2(est), _pow2(_pow2(P, floor=8) * _CAP_R + _MARGIN))
+    if total > out_size - _MARGIN:        # undersized estimate: grow it
+        out_size = _pow2(total + _MARGIN)
+
+    j = torch.arange(cap, device=device)[None, :]
+    first = torch.cumsum(cnt, 0) - cnt
+    dst = torch.where(j < cnt[:, None], first[:, None] + j,
+                      torch.full_like(j, out_size)).reshape(-1)
+
+    def scatter(vals, fill, dtype):
+        out = torch.full((out_size + 1,), fill, dtype=dtype, device=device)
+        out.scatter_(0, dst, vals.reshape(-1).to(dtype))
+        return out[:out_size]
+
+    mi_hash = scatter(h, UMAX, torch.int64)
+    mi_wpos = scatter(wp, PINF, torch.int32)
+    mi_sid = scatter(sid[:, None].expand(P, cap), PINF, torch.int32)
+    occ_hash, order = torch.sort(mi_hash, stable=True)   # pads stay last
+    return cls(metadata=metadata,
+               sequences_by_file=np.asarray(seq_by_file, np.int32),
+               mi_hash=mi_hash, mi_seqid=mi_sid, mi_wpos=mi_wpos,
+               occ_hash=occ_hash, occ_seqid=mi_sid[order],
+               occ_wpos=mi_wpos[order], occ_order=order, n_entries=total,
+               freq_threshold=int(np.iinfo(np.int32).max),
+               overflow=overflow)

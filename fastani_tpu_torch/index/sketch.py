@@ -1,0 +1,106 @@
+"""Reference minimizer index (counterpart of ``fastani_tpu/index/sketch.py``).
+
+The reference keeps an unordered_map hash -> [(seqId, wpos)...]
+(src/map/include/winSketch.hpp:44-341); here, as in the JAX package, the
+index is a pair of sorted dense arrays on the device:
+
+* build order  (mi_*):  entries sorted by (seqId, wpos), as winnowing emits
+  them — the L2 stage's positional windows;
+* lookup order (occ_*): the same entries stably sorted by hash — L1 probes
+  become searchsorted ranges.  ``occ_order`` is the permutation from the
+  lookup order to the build order.
+
+Arrays may be padded past ``n_entries`` (hash UMAX, seqId/wpos 2^30), as
+the device build leaves them.  Hashes are int64 tensors holding u32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from fastani_tpu_torch.config import Parameters
+
+
+@dataclasses.dataclass
+class ContigInfo:
+    name: str
+    length: int
+
+
+@dataclasses.dataclass
+class ReferenceIndex:
+    metadata: List[ContigInfo]
+    # file boundaries: sequences_by_file[f] = one-past-last seqId of file f
+    # (winSketch.hpp:68-75)
+    sequences_by_file: np.ndarray        # (num_files,) int32, host
+    mi_hash: torch.Tensor                # (M,) int64 (u32 values)
+    mi_seqid: torch.Tensor               # (M,) int32
+    mi_wpos: torch.Tensor                # (M,) int32
+    occ_hash: torch.Tensor               # (M,) int64
+    occ_seqid: torch.Tensor              # (M,) int32
+    occ_wpos: torch.Tensor               # (M,) int32
+    occ_order: Optional[torch.Tensor]    # (M,) int64 occ -> mi permutation
+    n_entries: int                       # true entry count (<= M)
+    freq_threshold: int
+    # True if a piece of the build overflowed the per-piece cap;
+    # build_device then rebuilds losslessly, so a finished index says False
+    overflow: bool = False
+
+    @property
+    def device(self) -> torch.device:
+        return self.mi_hash.device
+
+    def check_build_overflow(self) -> bool:
+        """Overflow flag of this index's build (checked on every build)."""
+        return self.overflow
+
+    def genome_of_seq(self) -> np.ndarray:
+        """seqId -> genome (file) id via upper_bound on the file boundaries
+        (computeCoreIdentity.hpp:31-42)."""
+        num_seqs = len(self.metadata)
+        return np.searchsorted(self.sequences_by_file, np.arange(num_seqs),
+                               side="right").astype(np.int32)
+
+    @classmethod
+    def build_device(cls, params: Parameters,
+                     ref_files: Optional[Sequence[str]] = None,
+                     device="cuda") -> "ReferenceIndex":
+        """Build on ``device``: K1 winnow, K2 compaction, assembly, stable
+        sort by hash (index/device_build.py)."""
+        from fastani_tpu_torch.index import device_build
+        from fastani_tpu_torch.ops.cuda import resolve_device
+
+        return device_build.build_device(cls, params, ref_files,
+                                         resolve_device(device))
+
+    @classmethod
+    def from_numpy(cls, arrays: dict, metadata, device,
+                   freq_threshold: int = np.iinfo(np.int32).max
+                   ) -> "ReferenceIndex":
+        """An index from numpy arrays (for example those of the JAX
+        package's index): ``arrays`` holds mi_hash/mi_seqid/mi_wpos,
+        occ_hash/occ_seqid/occ_wpos, optionally occ_order, the entry count
+        ``n_entries`` (default: the array length) and sequences_by_file;
+        ``metadata`` lists (name, length) pairs or ContigInfo."""
+        meta = [m if isinstance(m, ContigInfo) else ContigInfo(str(m[0]), int(m[1]))
+                for m in metadata]
+        to = lambda a, dt: torch.as_tensor(np.asarray(a).astype(dt),
+                                           device=device)
+        order = arrays.get("occ_order")
+        n = int(arrays.get("n_entries", len(arrays["mi_hash"])))
+        return cls(
+            metadata=meta,
+            sequences_by_file=np.asarray(arrays["sequences_by_file"], np.int32),
+            mi_hash=to(arrays["mi_hash"], np.int64),
+            mi_seqid=to(arrays["mi_seqid"], np.int32),
+            mi_wpos=to(arrays["mi_wpos"], np.int32),
+            occ_hash=to(arrays["occ_hash"], np.int64),
+            occ_seqid=to(arrays["occ_seqid"], np.int32),
+            occ_wpos=to(arrays["occ_wpos"], np.int32),
+            occ_order=None if order is None else to(order, np.int64),
+            n_entries=n,
+            freq_threshold=int(freq_threshold))

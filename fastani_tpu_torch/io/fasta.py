@@ -1,0 +1,89 @@
+"""FASTA/FASTQ reading, plain or gzip (counterpart of the pure-Python
+reader in ``fastani_tpu/io/fasta.py``).
+
+Record semantics of the reference's kseq parser (src/common/kseq.h):
+records begin at '>' (FASTA) or '@' (FASTQ), the name is the header text
+up to the first whitespace, the sequence is the concatenation of sequence
+lines, FASTQ quality lines are skipped.
+"""
+
+from __future__ import annotations
+
+import gzip
+from typing import Iterator, List, Tuple
+
+import numpy as np
+
+
+def _open_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        head = f.read(2)
+        f.seek(0)
+        if head[:2] == b"\x1f\x8b":
+            with gzip.open(f) as gz:
+                return gz.read()
+        return f.read()
+
+
+def read_sequences(path: str) -> Iterator[Tuple[str, np.ndarray]]:
+    """Yield (name, sequence bytes as a uint8 array) per record, in order."""
+    data = _open_bytes(path)
+    n = len(data)
+    i = 0
+    # skip leading junk until the first record marker (kseq does the same)
+    while i < n and data[i] not in (0x3E, 0x40):  # '>' '@'
+        i = data.find(b"\n", i)
+        if i < 0:
+            return
+        i += 1
+    while i < n:
+        marker = data[i]
+        eol = data.find(b"\n", i)
+        if eol < 0:
+            eol = n
+        header = data[i + 1 : eol]
+        for ws in (b" ", b"\t"):
+            cut = header.find(ws)
+            if cut >= 0:
+                header = header[:cut]
+        name = header.decode("ascii", "replace").strip("\r")
+        i = eol + 1
+        chunks: List[bytes] = []
+        if marker == 0x3E:  # FASTA: read until the next '>' or '@' line
+            while i < n and data[i] not in (0x3E, 0x40):
+                eol = data.find(b"\n", i)
+                if eol < 0:
+                    eol = n
+                chunks.append(data[i:eol].rstrip(b"\r"))
+                i = eol + 1
+        else:  # FASTQ: sequence lines until '+', then skip the qualities
+            while i < n and data[i] != 0x2B:  # '+'
+                eol = data.find(b"\n", i)
+                if eol < 0:
+                    eol = n
+                chunks.append(data[i:eol].rstrip(b"\r"))
+                i = eol + 1
+            seq_len = sum(len(c) for c in chunks)
+            eol = data.find(b"\n", i)
+            i = n if eol < 0 else eol + 1
+            qual = 0
+            while i < n and qual < seq_len:
+                eol = data.find(b"\n", i)
+                if eol < 0:
+                    eol = n
+                qual += eol - i - (1 if data[eol - 1 : eol] == b"\r" else 0)
+                i = eol + 1
+        yield name, np.frombuffer(b"".join(chunks), dtype=np.uint8)
+
+
+def genome_length_for_ani(path: str, frag_len: int) -> int:
+    """Genome length as counted for the minFraction gate
+    (cgi::computeGenomeLengths, computeCoreIdentity.hpp:48-92): contigs
+    shorter than frag_len are excluded, the others truncated down to a
+    multiple of frag_len."""
+    total = 0
+    for _, seq in read_sequences(path):
+        n = len(seq)
+        if n >= frag_len:
+            total += (n // frag_len) * frag_len
+    return total

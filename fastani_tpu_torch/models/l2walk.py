@@ -1,0 +1,217 @@
+"""Event-walk L2 (counterpart of ``fastani_tpu/models/l2walk.py``).
+
+Reference semantics: src/map/include/computeMap.hpp:418-497 (window loop),
+slidingMap.hpp:137-284 (bottom-s maintenance), MIIteratorL2.hpp:74-96
+(event-driven window advance).  With QH = {q_0 < ... < q_{s-1}} the
+fragment's sketch and RH(W) the reference hashes in super-window W,
+
+    m_j(W) = j + #{distinct h in RH(W) \\ QH : h < q_j}
+
+is strictly increasing in j, so sharedSketchElements(W) = #{j < j* : q_j in
+RH(W)} with j* = #{j : m_j < s}.  Every window event inserts or deletes one
+reference entry, which moves m_j by +-1 for all j >= jr (a non-query
+entry whose hash becomes or stops being distinct in the window) or flips
+one query rank's presence.
+
+``build_events`` serializes each unit's events (K4 key-value row sort of
+packed event keys with per-entry records as payload); ``walk`` runs them
+(K5, csrc/walk.cu, on CUDA tensors; ``walk_plain`` on CPU tensors).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fastani_tpu_torch.ops import cuda, sort
+from fastani_tpu_torch.ops.xputils import (PINF, UMAX, last_event_value,
+                                           shift_right)
+
+CLAMP = 1 << 28      # event values clamp here; anything >= is a pad
+NOSCORE = -5         # below the best-tracker init (-1)
+MAX_SCAP = 1023      # the packed event records hold ranks in 10 bits
+MAX_NCAP = 1022
+
+
+def prev_next_global(mi_hash, mi_sid, order):
+    """Per-entry previous/next same-(hash, seqId) occurrence in build order.
+
+    ``order`` is the stable argsort of mi_hash (the index's occ_order):
+    equal hashes are then grouped with same-seqId runs contiguous and
+    wpos-ascending, so adjacent pairs are the immediate neighbours.
+    Returns (prev, nxt) int64: prev = -1 / nxt = 2^30 when none."""
+    M = mi_hash.shape[0]
+    oh = mi_hash[order]
+    os_ = mi_sid[order]
+    same = (oh[1:] == oh[:-1]) & (os_[1:] == os_[:-1])
+    neg = torch.full((1,), -1, dtype=torch.int64, device=order.device)
+    inf = torch.full((1,), PINF, dtype=torch.int64, device=order.device)
+    prev_occ = torch.cat([neg, torch.where(same, order[:-1], -1)])
+    nxt_occ = torch.cat([torch.where(same, order[1:], PINF), inf])
+    prev_g = torch.empty(M, dtype=torch.int64, device=order.device)
+    nxt_g = torch.empty(M, dtype=torch.int64, device=order.device)
+    prev_g[order] = prev_occ
+    nxt_g[order] = nxt_occ
+    return prev_g, nxt_g
+
+
+def build_events(qh, s, frag_of_unit, u_sid, u_valid, b0, eL, mi_hash,
+                 mi_sid, mi_wpos, prev_g, nxt_g, frag_len: int, k: int,
+                 w: int, ncap: int):
+    """The serialized event stream of a chunk of units.
+
+    b0/eL: each unit's first entry at or after its range start and the end
+    of its last window (lower bounds over (seqId, wpos)).  The index arrays
+    carry >= ncap sentinel entries past the last real one, so every unit's
+    entry window [b0, b0 + ncap) is a contiguous slice.
+
+    Returns (ev, s_u, overflow, n_ev): ev is a dict of (U, T) int32 arrays,
+    T = 2*ncap + 1 — the sorted merge of enter events (value lp[i]-C+1),
+    leave events (value lp[i], i >= 1) and one scoring event at the initial
+    window value sw0 (codes 0/1/2: within an equal-value run enters sort
+    first and the synthetic last, the run-final evaluation of
+    MIIteratorL2::next)."""
+    if qh.shape[-1] > MAX_SCAP or ncap > MAX_NCAP:
+        raise ValueError(f"sketch_cap {qh.shape[-1]} / l2_entry_cap {ncap} "
+                         f"exceed the packed event record ({MAX_SCAP}/"
+                         f"{MAX_NCAP})")
+    U = u_sid.shape[0]
+    M = mi_hash.shape[0]
+    dev = qh.device
+    C = frag_len - (w - 1) - (k - 1)   # countMinimizerWindows, computeMap.hpp:428
+    sid = torch.where(u_valid, u_sid.to(torch.int64), 0)
+    b0 = b0.clamp(0, M - ncap)
+    offs = torch.arange(ncap, device=dev)
+    idx = b0[:, None] + offs[None, :]
+    in_contig = mi_sid[idx].to(torch.int64) == sid[:, None]
+    lh = torch.where(in_contig, mi_hash[idx], UMAX)
+    lp = torch.where(in_contig, mi_wpos[idx].to(torch.int64), PINF)
+    pv = prev_g[idx] - b0[:, None]
+    nx = nxt_g[idx] - b0[:, None]
+    sw0 = torch.where(in_contig[:, 0], lp[:, 0], 0)
+    overflow = u_valid & ((eL - b0) > ncap)
+    eL_loc = (eL - b0).clamp(0, ncap)
+
+    # per-entry query ranks: ql = #{q < h}, jr = #{q <= h} over the sorted,
+    # UMAX-padded sketch row; the entry is a query hash if q_ql == h, ql < s
+    qh_u = qh[frag_of_unit]
+    s_u = s[frag_of_unit]
+    ql = torch.searchsorted(qh_u, lh)
+    jr = torch.searchsorted(qh_u, lh, right=True)
+    q_at = torch.gather(qh_u, 1, ql.clamp(max=qh_u.shape[-1] - 1))
+    inq = (ql < s_u[:, None]) & (q_at == lh) & in_contig
+    nonq = in_contig & ~inq
+
+    # event records ride the merge sort as payload: ranks, flags and the
+    # clipped prev link (enters) / next link (leaves); the j-th enter event
+    # is entry j-1's and the j-th leave evicts entry j-1, so the leave
+    # records shift right by one
+    rec_base = ql | (jr << 10) | (inq.long() << 20) | (nonq.long() << 21)
+    rec_en = rec_base | ((pv.clamp(-1, ncap) + 1) << 22)
+    rec_lv = shift_right(rec_base | (nx.clamp(0, ncap) << 22), 1, 0)
+
+    # serialized event merge: key = min(value + C, CLAMP) << 2 | code
+    va = torch.where((offs[None, :] >= 1) & in_contig, lp, PINF)    # leaves
+    vb = torch.where(in_contig, lp - C + 1, PINF)                   # enters
+
+    def pack(v, code):
+        return ((v + C).clamp(max=CLAMP) << 2) | code
+
+    keys0 = torch.cat([pack(vb, 0), pack(va, 1), pack(sw0[:, None], 2)], 1)
+    pay0 = torch.cat([rec_en, rec_lv,
+                      torch.zeros((U, 1), dtype=torch.int64, device=dev)], 1)
+    keys, rec = sort.sort_rows_u32_kv(keys0, pay0)
+    vt = keys >> 2
+    code = keys & 3
+    real = vt < CLAMP
+    is_enter = (code == 0) & real
+    is_leave = (code == 1) & real
+    lb_t = torch.cumsum(is_leave, dim=-1)
+    le_t = torch.cumsum(is_enter, dim=-1)
+    # distinct-membership change: at entry e's enter the leaves so far are
+    # lb_t, so its hash is new iff prev[e] < lb_t; at the leave evicting e
+    # the enters so far are le_t, so its hash departs iff nxt[e] >= le_t
+    pvnx = (rec >> 22) & 0x3FF
+    eff = torch.where(is_enter, (pvnx - 1) < lb_t, pvnx >= le_t)
+    sign = torch.where(is_enter, 1, -1)
+    live = is_enter | is_leave
+    dn = torch.where(live & eff & (((rec >> 21) & 1) != 0), sign, 0)
+    dq = torch.where(live & eff & (((rec >> 20) & 1) != 0), sign, 0)
+    run_end = torch.ones_like(real)
+    run_end[:, :-1] = vt[:, :-1] != vt[:, 1:]
+    scored = (run_end & real & (vt >= (sw0 + C)[:, None])
+              & (le_t < eL_loc[:, None]) & u_valid[:, None])
+    # position at the event: lp of the most recent leave (lp[0] before any)
+    prop, _ = last_event_value(is_leave, torch.where(is_leave, vt - C, 0), 0)
+    poslb = torch.where(lb_t > 0, prop, lp[:, :1])
+    n_ev = real.sum(dim=-1)
+    i32 = lambda x: x.to(torch.int32)
+    ev = dict(dn=i32(dn), dq=i32(dq), jr=i32((rec >> 10) & 0x3FF),
+              jm=i32(rec & 0x3FF), scored=i32(scored), pos=i32(poslb))
+    return ev, i32(s_u), overflow, i32(n_ev)
+
+
+_EVENTS = ("dn", "dq", "jr", "jm", "scored", "pos")
+
+
+def walk(ev: dict, s_u: torch.Tensor, n_ev: torch.Tensor, scap: int):
+    """K5: the per-unit event walk.  Returns (best, posf, posl) (U,) int32."""
+    if s_u.device.type == "cpu":
+        return walk_plain(ev, s_u, n_ev, scap)
+    arrs = [ev[name].contiguous() for name in _EVENTS]
+    s_u = s_u.to(torch.int32).contiguous()
+    n_ev = n_ev.to(torch.int32).contiguous()
+    cuda.require_cuda("walk", *arrs, s_u, n_ev)
+    U, T = arrs[0].shape
+    if scap > 1024:
+        raise ValueError(f"walk: scap {scap} > 1024")
+    out = torch.empty((3, U), dtype=torch.int32, device=s_u.device)
+    if U:
+        err = cuda.lib("walk").fa_walk(
+            *[a.data_ptr() for a in arrs], s_u.data_ptr(), n_ev.data_ptr(), U, T,
+            scap, out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            cuda.stream())
+        cuda.check(err, "walk")
+        cuda.LAUNCHES["walk"] += 1
+    return out[0], out[1], out[2]
+
+
+def walk_plain(ev: dict, s_u: torch.Tensor, n_ev: torch.Tensor, scap: int):
+    """Plain PyTorch version of K5: ``walk_scan`` of the JAX package as a
+    loop over events, each unit stopping at its own n_ev as the kernel
+    does (build_events makes the events past n_ev no-ops anyway)."""
+    U = s_u.shape[0]
+    dev = s_u.device
+    jrow = torch.arange(scap, dtype=torch.int32, device=dev)[None, :]
+    m = jrow.expand(U, scap).clone()
+    pres = torch.zeros((U, scap), dtype=torch.int32, device=dev)
+    best = torch.full((U,), -1, dtype=torch.int32, device=dev)
+    posf = torch.zeros(U, dtype=torch.int32, device=dev)
+    posl = torch.zeros(U, dtype=torch.int32, device=dev)
+    s_col = s_u[:, None]
+    n_steps = int(n_ev.max()) if U else 0
+    for t in range(n_steps):
+        dn, dq, jr, jm, scf, pos = (ev[name][:, t] for name in _EVENTS)
+        live = t < n_ev
+        m += (dn * live)[:, None] * (jrow >= jr[:, None])
+        pres += (dq * live)[:, None] * (jrow == jm[:, None])
+        jstar = (m < s_col).sum(dim=-1)
+        cnt = ((pres > 0) & (jrow < jstar[:, None])).sum(dim=-1)
+        sc = torch.where((scf != 0) & live, cnt.to(torch.int32), NOSCORE)
+        posf = torch.where(sc > best, pos, posf)
+        posl = torch.where(sc >= best, pos, posl)
+        best = torch.maximum(best, sc)
+    return best, posf, posl
+
+
+def l2_walk_units(qh, s, frag_of_unit, u_sid, u_valid, b0, eL, mi_hash,
+                  mi_sid, mi_wpos, prev_g, nxt_g, frag_len: int, k: int,
+                  w: int, ncap: int):
+    """Batched L2 over work units via the event walk.  Returns (shared,
+    mean_pos, valid, overflow), each (U,)."""
+    ev, s_u, overflow, n_ev = build_events(
+        qh, s, frag_of_unit, u_sid, u_valid, b0, eL, mi_hash, mi_sid,
+        mi_wpos, prev_g, nxt_g, frag_len, k, w, ncap)
+    best, posf, posl = walk(ev, s_u, n_ev, qh.shape[-1])
+    valid = u_valid & (best > 0)
+    mean_pos = torch.where(valid, (posf + posl) // 2, 0)
+    return best.clamp(min=0), mean_pos, valid, overflow
