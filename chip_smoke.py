@@ -10,6 +10,9 @@ Phases, one JSON line each; any failure exits non-zero:
 2. kernels: each of K1-K5 on seeded inputs at the main path's shapes,
    held bit-equal to its plain PyTorch version on the card; kernel, plain
    and library times from CUDA events; the bound from bytes and operations.
+   K5 walks real event streams (the port's own index build, sketch, L1 and
+   ``build_events`` on generated genomes, ``real_streams``) at U 512, the
+   main path's chunk, and at U 4096; K4 sorts int32 words with bit 31 set.
 3. golden: tests/test_golden_frozen.py's fixtures (seed 2024) through the
    port's CLI on the card, against tests/golden/one2one.txt and multi.txt.
 4. main path: bench.py's ``mid`` workload (32 genomes x 3 Mbp,
@@ -51,7 +54,7 @@ REPLACES = {
     "compact": "fastani_tpu/ops/pallas_compact.py:43 (_compact_block_kernel)",
     "sort": "fastani_tpu/ops/pallas_sort.py:28 (_sort_block_kernel)",
     "sort_kv": "fastani_tpu/ops/pallas_sort.py:116 (_sort_kv_block_kernel)",
-    "walk": "fastani_tpu/models/l2walk.py:310 (_walk_pallas_call kernel)",
+    "walk": "fastani_tpu/models/l2walk.py:298 (_walk_pallas_call)",
 }
 SOURCE = {
     "winnow": "fastani_tpu_torch/csrc/winnow.cu",
@@ -149,6 +152,67 @@ def write_fasta(path, contigs, line_width: int = 70) -> None:
                 f.write(b[i: i + line_width] + b"\n")
 
 
+# integer operations per event of K5's O(1) design (csrc/walk.cu: the rank
+# select and clamps, the packed-word update and forward, P, cnt, the move
+# test and the score), against 24 bytes read per event
+WALK_OPS_PER_EVENT = 30
+
+
+def real_streams(torch, np, dev, sizes=(512, 4096), genome_bp=GENOME_BP):
+    """Real L2 event streams at the main path's widths: four references (a
+    3 Mbp genome mutated 1-4 %, one also holding a repeat-rich contig: a
+    60 kbp block three times around 40 near-identical tandem copies of a
+    700 bp unit), an index built on ``dev`` by the port, 2048 query
+    fragments (two diverged strains and the repeat region) through
+    ``jitmap.locate_units`` and ``l2walk.build_events``.  Returns
+    {U: (ev, s_u, n_ev)} for the first U units of the batch, and scap."""
+    from fastani_tpu_torch.config import Parameters, scale_caps
+    from fastani_tpu_torch.index.sketch import ReferenceIndex
+    from fastani_tpu_torch.models import jitmap, l2walk
+
+    wd = WORK / "streams"
+    wd.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(11)
+    base = genome_bytes(np, rng, genome_bp)
+    unit = genome_bytes(np, rng, 700)
+    tandem = np.concatenate([mutate_genome(np, rng, unit, 0.01, 0.0)
+                             for _ in range(40)])
+    block = genome_bytes(np, rng, 60_000)
+    rep = np.concatenate([block, genome_bytes(np, rng, 5000), block, tandem,
+                          block])
+    files = []
+    for i in range(4):
+        contigs = [(f"r{i}", mutate_genome(np, rng, base, 0.01 * (i + 1),
+                                           0.0002))]
+        if i == 0:
+            contigs.append(("rep", rep))
+        write_fasta(wd / f"r{i}.fa", contigs)
+        files.append(str(wd / f"r{i}.fa"))
+    p = Parameters(ref_sequences=files).finalize()
+    scale_caps(32, p)                        # the caps of the mid run
+    B, L = p.frag_batch, p.frag_len
+    mapper = jitmap.Mapper(p, ReferenceIndex.build_device(p, device=dev),
+                           unit_factor=int(1.7 * 32) + 8)
+    # the repeat region's fragments first, so the first chunk holds them
+    n_rep = 48
+    qrep = mutate_genome(np, rng, rep[60_000:], 0.01, 0.0)
+    strains = [mutate_genome(np, rng, base, 0.02, 0.0003) for _ in range(2)]
+    frags = np.concatenate(
+        [qrep[: n_rep * L].reshape(n_rep, L)]
+        + [g[: (len(g) // L) * L].reshape(-1, L) for g in strains])[:B]
+    cfg, t = mapper.cfg, mapper.tables
+    u = jitmap.locate_units(cfg, torch.as_tensor(frags, device=dev), t)
+    out = {}
+    for U in sizes:
+        if u["n_live"] < U:
+            raise AssertionError(f"{u['n_live']} valid units, {U} wanted")
+        ev, s_u, _, n_ev = l2walk.build_events(
+            *jitmap.l2_chunk_args(cfg, t, u, slice(0, U)))
+        out[U] = (ev, s_u, n_ev)
+    shutil.rmtree(wd, ignore_errors=True)
+    return out, cfg.sketch_cap
+
+
 def check_kernels(torch, np):
     from fastani_tpu_torch.config import Parameters, scale_caps
     from fastani_tpu_torch.index import device_build
@@ -167,10 +231,10 @@ def check_kernels(torch, np):
     results = {}
 
     def record(name, shape, outs_k, outs_p, fn_k, fn_p, nbytes, nops,
-               fn_lib=None, reps=20, plain_reps=3, nbytes_u32=None):
-        """``nbytes`` counts u32 values in the int64 words the kernels
-        take; ``nbytes_u32`` counts them at 4 bytes, as an int32 view
-        would move them."""
+               fn_lib=None, reps=20, plain_reps=3, nbytes_u32=None, **extra):
+        """``nbytes`` counts the words the kernel takes (K2 and K3 take u32
+        values in int64 words); ``nbytes_u32`` counts them at 4 bytes, as
+        an int32 view would move them."""
         err = max_abs_err(torch, outs_k, outs_p)
         if err != 0:
             raise AssertionError(f"{name} at {shape}: kernel differs from "
@@ -181,7 +245,7 @@ def check_kernels(torch, np):
         b_ms, b_by = bound(nbytes, nops)
         row = dict(name=name, shape=shape, max_abs_err=err, kernel_ms=ms,
                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=lib_ms)
+                   library_ms=lib_ms, **extra)
         if nbytes_u32 is not None:
             row["bound_u32_ms"], row["bound_u32_by"] = bound(nbytes_u32, nops)
         emit({"phase": "kernel", **row})
@@ -284,38 +348,37 @@ def check_kernels(torch, np):
            fn_lib=lambda: torch.sort(hits, dim=-1),
            nbytes_u32=hits.numel() * 8)
 
-    # K4 key-value sort: the L2 event merge (unit_chunk, 2 * l2_entry_cap + 1)
-    kv_keys = torch.randint(0, 2 ** 30, (U, T), device=dev)
+    # K4 key-value sort: the L2 event merge (unit_chunk, 2 * l2_entry_cap +
+    # 1), int32 words: keys below 2^31 with the clamped pads tied, payload
+    # records over all 32 bits (bit 31 set in about half)
+    kv_keys = torch.randint(0, 2 ** 30, (U, T), dtype=torch.int32, device=dev)
     kv_keys[:, 1500:] = (1 << 28) << 2             # clamped pads, tied
-    kv_pay = torch.randint(0, 2 ** 32, (U, T), device=dev)
+    kv_pay = torch.randint(-2 ** 31, 2 ** 31 - 1, (U, T), dtype=torch.int32,
+                           device=dev)
     record("sort_kv", [U, T], list(sort.sort_rows_u32_kv(kv_keys, kv_pay)),
            list(sort.sort_rows_u32_kv_plain(kv_keys, kv_pay)),
            lambda: sort.sort_rows_u32_kv(kv_keys, kv_pay),
            lambda: sort.sort_rows_u32_kv_plain(kv_keys, kv_pay),
-           nbytes=U * T * 32, nops=n_cmp(U, T) * 2,
-           fn_lib=lambda: torch.sort(kv_keys, dim=-1, stable=True),
-           nbytes_u32=U * T * 16)
+           nbytes=U * T * 16, nops=n_cmp(U, T) * 2,
+           fn_lib=lambda: torch.sort(kv_keys, dim=-1, stable=True))
 
-    # K5 walk: (U, T) event streams with scap 320
-    ev = dict(dn=torch.randint(-1, 2, (U, T), dtype=torch.int32, device=dev),
-              dq=torch.randint(-1, 2, (U, T), dtype=torch.int32, device=dev),
-              jr=torch.randint(0, scap + 1, (U, T), dtype=torch.int32,
-                               device=dev),
-              jm=torch.randint(0, scap, (U, T), dtype=torch.int32, device=dev),
-              scored=torch.randint(0, 2, (U, T), dtype=torch.int32,
-                                   device=dev),
-              pos=torch.randint(0, 3_000_000, (U, T), dtype=torch.int32,
-                                device=dev))
-    s_u = torch.randint(1, scap + 1, (U,), dtype=torch.int32, device=dev)
-    n_ev = torch.randint(T // 2, T + 1, (U,), dtype=torch.int32, device=dev)
-    need = float((n_ev.long() * s_u.long()).sum())
-    record("walk", [U, T, scap], list(l2walk.walk(ev, s_u, n_ev, scap)),
-           list(l2walk.walk_plain(ev, s_u, n_ev, scap)),
-           lambda: l2walk.walk(ev, s_u, n_ev, scap),
-           lambda: l2walk.walk_plain(ev, s_u, n_ev, scap),
-           nbytes=float(n_ev.sum()) * 24 + U * 20,
-           # per event, per query rank below s: two updates, two compares
-           nops=need * 4, reps=5, plain_reps=1)
+    # K5 walk: real event streams at the main path's chunk (U 512, scap
+    # 320) and at U 4096; bound from the bytes these streams need read once
+    # and the design's operations per event
+    streams, s_cap = real_streams(torch, np, dev)
+    if s_cap != scap:
+        raise AssertionError(f"stream scap {s_cap} != {scap}")
+    for Uw, (ev, s_u, n_ev) in streams.items():
+        n_sum = float(n_ev.sum())
+        name = "walk" if Uw == U else f"walk_u{Uw}"
+        record(name, [Uw, ev["dn"].shape[1], scap],
+               list(l2walk.walk(ev, s_u, n_ev, scap)),
+               list(l2walk.walk_plain(ev, s_u, n_ev, scap)),
+               lambda: l2walk.walk(ev, s_u, n_ev, scap),
+               lambda: l2walk.walk_plain(ev, s_u, n_ev, scap),
+               nbytes=n_sum * 24 + Uw * 20,
+               nops=n_sum * WALK_OPS_PER_EVENT, reps=20, plain_reps=1,
+               n_ev_mean=n_sum / Uw, n_ev_max=int(n_ev.max()))
     return results
 
 

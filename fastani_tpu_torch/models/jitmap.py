@@ -100,10 +100,10 @@ class IndexTables:
     gate: torch.Tensor          # (s_max+1,) int64 identity-gate LUT
 
 
-def map_step(cfg: MapperConfig, frags: torch.Tensor, t: IndexTables) -> dict:
-    """One fragment batch against one index.  Returns a dict of (unit_cap,)
-    unit arrays (frag, sid, shared, sketch, mean_pos, valid = gated) plus
-    per-fragment overflow masks and the observed maxima."""
+def locate_units(cfg: MapperConfig, frags: torch.Tensor,
+                 t: IndexTables) -> dict:
+    """Sketch, L1, valid-unit compaction to ``unit_cap`` and each unit's
+    entry window: everything of one batch before its L2 chunks."""
     F = frags.shape[0]
     dev = frags.device
     k, w, l = cfg.kmer_size, cfg.window_size, cfg.frag_len
@@ -124,11 +124,9 @@ def map_step(cfg: MapperConfig, frags: torch.Tensor, t: IndexTables) -> dict:
         width=cfg.unit_cap))
     U = cfg.unit_cap
     u_valid = torch.arange(U, device=dev) < n_valid_units
-    unit_overflow = n_valid_units > U
     # exact per-fragment attribution of dropped units: fragment f's units
     # occupy [cum_excl[f], cum[f]) and any past unit_cap are dropped
     nvf = l1.valid.sum(dim=-1)
-    unit_drop_frag = (torch.cumsum(nvf, 0) > U) & (nvf > 0)
 
     # window location: first entry at/after the range start, end of the
     # last window (lower bounds over (seqId, wpos), winSketch.hpp:259-270)
@@ -137,33 +135,54 @@ def map_step(cfg: MapperConfig, frags: torch.Tensor, t: IndexTables) -> dict:
                                      u_start.to(torch.int64))
     eL = mapping._searchsorted_pairs(t.mi_sid, t.mi_wpos, sid_m,
                                      u_end.to(torch.int64) + l)
+    return dict(qh=qh, s=s, sk_over=sk_over, l1=l1, u_frag=u_frag,
+                u_sid=u_sid, u_valid=u_valid, b0=b0, eL=eL, nvf=nvf,
+                # L2 runs only over chunks holding a valid unit (valid
+                # units come first)
+                n_live=min(n_valid_units, U),
+                unit_overflow=n_valid_units > U,
+                unit_drop_frag=(torch.cumsum(nvf, 0) > U) & (nvf > 0))
 
+
+def l2_chunk_args(cfg: MapperConfig, t: IndexTables, u: dict,
+                  sl: slice) -> tuple:
+    """The ``l2walk.build_events`` / ``l2_walk_units`` arguments of the
+    units ``sl`` of ``locate_units``'s result ``u``."""
+    return (u["qh"], u["s"], u["u_frag"][sl].long(), u["u_sid"][sl],
+            u["u_valid"][sl], u["b0"][sl], u["eL"][sl], t.mi_hash, t.mi_sid,
+            t.mi_wpos, t.mi_prev, t.mi_nxt, cfg.frag_len, cfg.kmer_size,
+            cfg.window_size, cfg.l2_entry_cap)
+
+
+def map_step(cfg: MapperConfig, frags: torch.Tensor, t: IndexTables) -> dict:
+    """One fragment batch against one index.  Returns a dict of (unit_cap,)
+    unit arrays (frag, sid, shared, sketch, mean_pos, valid = gated) plus
+    per-fragment overflow masks and the observed maxima."""
+    dev = frags.device
+    u = locate_units(cfg, frags, t)
+    U = cfg.unit_cap
     shared = torch.zeros(U, dtype=torch.int32, device=dev)
     mean_pos = torch.zeros(U, dtype=torch.int32, device=dev)
     l2_valid = torch.zeros(U, dtype=torch.bool, device=dev)
     l2_over = torch.zeros(U, dtype=torch.bool, device=dev)
-    # L2 only over chunks holding a valid unit (valid units come first)
-    n_live = min(n_valid_units, U)
-    for c0 in range(0, n_live, cfg.unit_chunk):
+    for c0 in range(0, u["n_live"], cfg.unit_chunk):
         sl = slice(c0, min(c0 + cfg.unit_chunk, U))
-        sh, mp, va, ov = l2walk.l2_walk_units(
-            qh, s, u_frag[sl].long(), u_sid[sl], u_valid[sl], b0[sl], eL[sl],
-            t.mi_hash, t.mi_sid, t.mi_wpos, t.mi_prev, t.mi_nxt, l, k, w,
-            cfg.l2_entry_cap)
-        shared[sl], mean_pos[sl], l2_valid[sl], l2_over[sl] = sh, mp, va, ov
+        shared[sl], mean_pos[sl], l2_valid[sl], l2_over[sl] = (
+            l2walk.l2_walk_units(*l2_chunk_args(cfg, t, u, sl)))
 
     # identity gate: shared >= gate[s]
+    u_frag, s, l1 = u["u_frag"], u["s"], u["l1"]
     s_u = s[u_frag.long()]
     gated = l2_valid & (shared >= t.gate[s_u.clamp(0, t.gate.shape[0] - 1)])
-    max_span = torch.where(u_valid, eL - b0, 0).max()
+    max_span = torch.where(u["u_valid"], u["eL"] - u["b0"], 0).max()
     return dict(
-        frag=u_frag, sid=u_sid, shared=shared, sketch=s_u.to(torch.int32),
+        frag=u_frag, sid=u["u_sid"], shared=shared, sketch=s_u.to(torch.int32),
         mean_pos=mean_pos, valid=gated & ~l2_over,
-        frag_sketch_overflow=sk_over, l1_overflow=l1.overflow,
-        l2_overflow=l2_over, unit_frag_overflow=unit_overflow,
-        unit_drop_frag=unit_drop_frag,
+        frag_sketch_overflow=u["sk_over"], l1_overflow=l1.overflow,
+        l2_overflow=l2_over, unit_frag_overflow=u["unit_overflow"],
+        unit_drop_frag=u["unit_drop_frag"],
         max_hits=l1.n_hits.max(), max_groups=l1.n_groups.max(),
-        max_s=s.max(), max_span=max_span, n_units=nvf.sum(),
+        max_s=s.max(), max_span=max_span, n_units=u["nvf"].sum(),
         sum_hits=l1.n_hits.sum())
 
 

@@ -14,8 +14,12 @@ entry whose hash becomes or stops being distinct in the window) or flips
 one query rank's presence.
 
 ``build_events`` serializes each unit's events (K4 key-value row sort of
-packed event keys with per-entry records as payload); ``walk`` runs them
-(K5, csrc/walk.cu, on CUDA tensors; ``walk_plain`` on CPU tensors).
+packed event keys with per-entry records as payload, both int32 words);
+``walk`` runs them (K5, csrc/walk.cu, on CUDA tensors; ``walk_plain`` on
+CPU tensors).  K5 relies on the invariant above: along every stream
+``build_events`` makes, m stays strictly increasing and every presence
+stays 0 or 1, so j* moves by at most one rank per event and the kernel
+does O(1) work per event (``walk_recurrence`` restates its recurrence).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 
 from fastani_tpu_torch.ops import cuda, sort
 from fastani_tpu_torch.ops.xputils import (PINF, UMAX, last_event_value,
-                                           shift_right)
+                                           shift_right, u32_as_i32)
 
 CLAMP = 1 << 28      # event values clamp here; anything >= is a pad
 NOSCORE = -5         # below the best-tracker init (-1)
@@ -104,7 +108,8 @@ def build_events(qh, s, frag_of_unit, u_sid, u_valid, b0, eL, mi_hash,
     # event records ride the merge sort as payload: ranks, flags and the
     # clipped prev link (enters) / next link (leaves); the j-th enter event
     # is entry j-1's and the j-th leave evicts entry j-1, so the leave
-    # records shift right by one
+    # records shift right by one.  The link sits in bits 22-31, so a record
+    # as an int32 word may be negative: every field read below is masked
     rec_base = ql | (jr << 10) | (inq.long() << 20) | (nonq.long() << 21)
     rec_en = rec_base | ((pv.clamp(-1, ncap) + 1) << 22)
     rec_lv = shift_right(rec_base | (nx.clamp(0, ncap) << 22), 1, 0)
@@ -116,9 +121,12 @@ def build_events(qh, s, frag_of_unit, u_sid, u_valid, b0, eL, mi_hash,
     def pack(v, code):
         return ((v + C).clamp(max=CLAMP) << 2) | code
 
-    keys0 = torch.cat([pack(vb, 0), pack(va, 1), pack(sw0[:, None], 2)], 1)
-    pay0 = torch.cat([rec_en, rec_lv,
-                      torch.zeros((U, 1), dtype=torch.int64, device=dev)], 1)
+    # keys stay below 2^31 ((CLAMP << 2) | 3); both travel as int32 words
+    keys0 = torch.cat([pack(vb, 0), pack(va, 1), pack(sw0[:, None], 2)],
+                      1).to(torch.int32)
+    pay0 = u32_as_i32(torch.cat(
+        [rec_en, rec_lv, torch.zeros((U, 1), dtype=torch.int64, device=dev)],
+        1))
     keys, rec = sort.sort_rows_u32_kv(keys0, pay0)
     vt = keys >> 2
     code = keys & 3
@@ -157,13 +165,20 @@ def walk(ev: dict, s_u: torch.Tensor, n_ev: torch.Tensor, scap: int):
     """K5: the per-unit event walk.  Returns (best, posf, posl) (U,) int32."""
     if s_u.device.type == "cpu":
         return walk_plain(ev, s_u, n_ev, scap)
+    if any(ev[name].dtype != torch.int32 for name in _EVENTS):
+        raise ValueError("walk: the event arrays must be int32")
+    # the kernel stages 16-byte chunks: each array 16-byte aligned (a view
+    # at an odd offset is copied to a fresh allocation)
     arrs = [ev[name].contiguous() for name in _EVENTS]
+    arrs = [a if a.data_ptr() % 16 == 0 else a.clone() for a in arrs]
     s_u = s_u.to(torch.int32).contiguous()
     n_ev = n_ev.to(torch.int32).contiguous()
     cuda.require_cuda("walk", *arrs, s_u, n_ev)
     U, T = arrs[0].shape
     if scap > 1024:
         raise ValueError(f"walk: scap {scap} > 1024")
+    if 4 * U * T >= 1 << 32:
+        raise ValueError(f"walk: {U} x {T} events exceed 4 GB")
     out = torch.empty((3, U), dtype=torch.int32, device=s_u.device)
     if U:
         err = cuda.lib("walk").fa_walk(
@@ -197,6 +212,60 @@ def walk_plain(ev: dict, s_u: torch.Tensor, n_ev: torch.Tensor, scap: int):
         jstar = (m < s_col).sum(dim=-1)
         cnt = ((pres > 0) & (jrow < jstar[:, None])).sum(dim=-1)
         sc = torch.where((scf != 0) & live, cnt.to(torch.int32), NOSCORE)
+        posf = torch.where(sc > best, pos, posf)
+        posl = torch.where(sc >= best, pos, posl)
+        best = torch.maximum(best, sc)
+    return best, posf, posl
+
+
+def walk_recurrence(ev: dict, s_u: torch.Tensor, n_ev: torch.Tensor,
+                    scap: int):
+    """K5's O(1)-per-event recurrence (csrc/walk.cu) restated in plain
+    PyTorch over units, for the tests: per-unit diff and pres over ranks
+    0..scap, and j*, the prefix sum P = sum_{i < j*} diff[i] and cnt in
+    place of the O(scap) state of ``walk_plain``.  Equal to ``walk_plain``
+    on streams that keep the invariant (m strictly increasing, pres in
+    {0, 1}); returns (best, posf, posl) (U,) int32."""
+    U = s_u.shape[0]
+    dev = s_u.device
+    rows = torch.arange(U, device=dev)
+    diff = torch.zeros((U, scap + 1), dtype=torch.int32, device=dev)
+    pres = torch.zeros((U, scap + 1), dtype=torch.int32, device=dev)
+    jstar = s_u.clamp(0, scap).to(torch.int64)
+    P = torch.zeros(U, dtype=torch.int32, device=dev)
+    cnt = torch.zeros(U, dtype=torch.int32, device=dev)
+    best = torch.full((U,), -1, dtype=torch.int32, device=dev)
+    posf = torch.zeros(U, dtype=torch.int32, device=dev)
+    posl = torch.zeros(U, dtype=torch.int32, device=dev)
+    n_steps = int(n_ev.max()) if U else 0
+    for t in range(n_steps):
+        dn, dq, jr, jm, scf, pos = (ev[name][:, t] for name in _EVENTS)
+        live = t < n_ev
+        dn = dn * live
+        dq = dq * live
+        jr = jr.long().clamp(max=scap)
+        jm = jm.long().clamp(max=scap)
+        # 1. diff[jr] += dn, and P follows below j*
+        diff[rows, jr] += dn
+        P += torch.where(jr < jstar, dn, 0)
+        # 2. pres[jm] += dq, and cnt follows below j* when presence flips
+        old = pres[rows, jm] > 0
+        pres[rows, jm] += dq
+        flip = (pres[rows, jm] > 0).int() - old.int()
+        cnt += torch.where(jm < jstar, flip, 0)
+        # 3-4. j* moves at most one rank; P and cnt take the rank crossed
+        lo = (jstar - 1).clamp(min=0)
+        down = (dn > 0) & (jstar > 0) & (jstar - 1 + P >= s_u)
+        up = ((dn < 0) & (jstar < scap)
+              & (jstar + P + diff[rows, jstar.clamp(max=scap)] < s_u))
+        P = torch.where(down, P - diff[rows, lo], P)
+        cnt = torch.where(down, cnt - (pres[rows, lo] > 0).int(), cnt)
+        hi = jstar.clamp(max=scap)
+        P = torch.where(up, P + diff[rows, hi], P)
+        cnt = torch.where(up, cnt + (pres[rows, hi] > 0).int(), cnt)
+        jstar = jstar - down.long() + up.long()
+        # 5. score
+        sc = torch.where((scf != 0) & live, cnt, NOSCORE)
         posf = torch.where(sc > best, pos, posf)
         posl = torch.where(sc >= best, pos, posl)
         best = torch.maximum(best, sc)

@@ -2,13 +2,15 @@
 ``fastani_tpu/ops/pallas_sort.py``: ``sort_rows_u32`` and
 ``sort_rows_u32_kv``).
 
-Keys are int64 tensors holding u32 values.  On CUDA tensors the wrappers
-launch ``csrc/sort.cu``; on CPU tensors they run the plain PyTorch version,
-the same bitonic network as vectorized compare-exchange stages.  Rows of
-any width up to the limit work: the network pads with UMAX to a power of
-two and only the first n columns come back.  The key-value sort is stable
-(it sorts ``key << 32 | column`` composites), so its payload is a true
-permutation even on tied keys.
+On CUDA tensors the wrappers launch ``csrc/sort.cu``; on CPU tensors they
+run the plain PyTorch version, the same bitonic network as vectorized
+compare-exchange stages.  Rows of any width up to the limit work: the
+network pads with UMAX to a power of two and only the first n columns come
+back.  K3 takes int64 tensors holding u32 values.  K4 takes int32 words
+holding u32 bit patterns on the card (its plain version takes int32 or
+int64, treats both as u32 and answers in the dtype it was given); it is
+stable (it sorts ``key << 32 | column`` composites), so its payload is a
+true permutation even on tied keys.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from fastani_tpu_torch.ops import cuda
-from fastani_tpu_torch.ops.xputils import UMAX
+from fastani_tpu_torch.ops.xputils import UMAX, u32_as_i32
 
 MAX_KEYS = 32768       # 128 KB of u32 keys in one block's shared memory
 MAX_KV = 16384         # 128 KB of 64-bit composites
@@ -71,8 +73,9 @@ def sort_rows_u32_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def sort_rows_u32_kv(keys: torch.Tensor, payload: torch.Tensor):
-    """Stable ascending per-row sort of (R, n) int64 u32 keys with an int64
-    payload permuted alongside.  Returns (sorted_keys, payload)."""
+    """Stable ascending per-row sort of (R, n) u32 keys with a u32 payload
+    permuted alongside.  Returns (sorted_keys, payload).  On the card both
+    are int32 words holding u32 bit patterns, in and out."""
     R, n = keys.shape
     if n > MAX_KV:
         raise ValueError(f"sort_rows_u32_kv: width {n} > {MAX_KV}")
@@ -80,8 +83,11 @@ def sort_rows_u32_kv(keys: torch.Tensor, payload: torch.Tensor):
         raise ValueError("sort_rows_u32_kv: payload shape differs from keys")
     if keys.device.type == "cpu":
         return sort_rows_u32_kv_plain(keys, payload)
-    keys = keys.to(torch.int64).contiguous()
-    payload = payload.to(torch.int64).contiguous()
+    if keys.dtype != torch.int32 or payload.dtype != torch.int32:
+        raise ValueError(f"sort_rows_u32_kv: int32 words expected on the "
+                         f"card, got {keys.dtype} / {payload.dtype}")
+    keys = keys.contiguous()
+    payload = payload.contiguous()
     cuda.require_cuda("sort_rows_u32_kv", keys, payload)
     ko = torch.empty_like(keys)
     po = torch.empty_like(payload)
@@ -95,10 +101,12 @@ def sort_rows_u32_kv(keys: torch.Tensor, payload: torch.Tensor):
 
 
 def sort_rows_u32_kv_plain(keys: torch.Tensor, payload: torch.Tensor):
+    """Plain version of K4: int32 or int64 words, both read as u32; the
+    outputs keep the input dtypes."""
     R, n = keys.shape
     N = _pow2(n)
     col = torch.arange(N, dtype=torch.int64, device=keys.device)
-    k = torch.cat([keys.to(torch.int64),
+    k = torch.cat([keys.to(torch.int64) & UMAX,
                    torch.full((R, N - n), UMAX, dtype=torch.int64,
                               device=keys.device)], dim=1)
     # u64 composite key << 32 | column, sign bit flipped so int64 order is
@@ -106,5 +114,5 @@ def sort_rows_u32_kv_plain(keys: torch.Tensor, payload: torch.Tensor):
     comp = ((k << 32) | col[None, :]) ^ (-(1 << 63))
     comp = _bitonic(comp)[:, :n] ^ (-(1 << 63))
     ko = (comp >> 32) & UMAX
-    po = torch.gather(payload.to(torch.int64), 1, comp & UMAX)
-    return ko, po
+    po = torch.gather(payload, 1, comp & UMAX)
+    return (u32_as_i32(ko) if keys.dtype == torch.int32 else ko), po

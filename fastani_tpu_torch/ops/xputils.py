@@ -15,6 +15,11 @@ UMAX = 0xFFFFFFFF            # u32 pad value (carried in int64)
 PINF = 2 ** 30               # position infinity (room for +C arithmetic)
 
 
+def u32_as_i32(x: torch.Tensor) -> torch.Tensor:
+    """u32 values carried in int64 -> int32 words with the same 32 bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
 def last_event_value(event: torch.Tensor, val: torch.Tensor, seed: int):
     """out[..., i] = val[..., j] for the largest j <= i with event[..., j];
     ``seed`` if there is none.  Returns (out, has)."""

@@ -13,8 +13,10 @@ import torch
 
 from fastani_tpu_torch.config import Parameters
 from fastani_tpu_torch.index import device_build
-from fastani_tpu_torch.models import l2walk, pipeline
+from fastani_tpu_torch.index.sketch import ReferenceIndex
+from fastani_tpu_torch.models import jitmap, l2walk, pipeline
 from fastani_tpu_torch.ops import compact, sort, winnow
+from fastani_tpu_torch.ops.xputils import u32_as_i32
 
 pytestmark = pytest.mark.cuda
 
@@ -61,31 +63,76 @@ def test_compact_kernel_matches_plain(cuda_device):
             compact.compact_rows_plain(flags, pays, width))
 
 
-@pytest.mark.parametrize("n", [1000, 2048, 7680, 32768])
+@pytest.mark.parametrize("n", [200, 1000, 2048, 7680, 16384, 32768])
 def test_sort_kernels_match_plain(cuda_device, n):
     g = torch.Generator(device="cpu").manual_seed(n)
     x = torch.randint(0, 2 ** 32, (3, n), generator=g).to(cuda_device)
     x[:, ::3] = x[:, :1]                          # ties
     _eq([sort.sort_rows_u32(x)], [sort.sort_rows_u32_plain(x)])
     if n <= sort.MAX_KV:
-        p = torch.randint(0, 2 ** 32, (3, n), generator=g).to(cuda_device)
-        _eq(sort.sort_rows_u32_kv(x, p), sort.sort_rows_u32_kv_plain(x, p))
+        # K4 on int32 words: keys and payload over all 32 bits, bit 31 set
+        k = u32_as_i32(x)
+        p = torch.randint(-2 ** 31, 2 ** 31 - 1, (3, n), generator=g,
+                          dtype=torch.int32).to(cuda_device)
+        assert bool((k < 0).any()) and bool((p < 0).any())
+        got = sort.sort_rows_u32_kv(k, p)
+        assert got[0].dtype == got[1].dtype == torch.int32
+        _eq(got, sort.sort_rows_u32_kv_plain(k, p))
+        with pytest.raises(ValueError):
+            sort.sort_rows_u32_kv(x, p)           # int64 words on the card
 
 
-@pytest.mark.parametrize("scap", [100, 256, 320, 1000])
-def test_walk_kernel_matches_plain(cuda_device, scap):
-    g = torch.Generator(device="cpu").manual_seed(scap)
-    U, T = 40, 301
-    r = lambda lo, hi: torch.randint(lo, hi, (U, T), generator=g,
-                                     dtype=torch.int32).to(cuda_device)
-    ev = dict(dn=r(-1, 2), dq=r(-1, 2), jr=r(0, scap + 1), jm=r(0, scap),
-              scored=r(0, 2), pos=r(0, 10 ** 6))
-    s_u = torch.randint(1, scap + 1, (U,), generator=g,
-                        dtype=torch.int32).to(cuda_device)
-    n_ev = torch.randint(0, T + 1, (U,), generator=g,
-                         dtype=torch.int32).to(cuda_device)
-    _eq(l2walk.walk(ev, s_u, n_ev, scap),
-        l2walk.walk_plain(ev, s_u, n_ev, scap))
+def _mutate(rng, seq, rate):
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    out = seq.copy()
+    pos = rng.choice(len(out), int(len(out) * rate), replace=False)
+    out[pos] = acgt[rng.integers(0, 4, len(pos))]
+    return out
+
+
+def _write_fasta(path, contigs):
+    with open(path, "wb") as f:
+        for name, seq in contigs:
+            f.write(b">" + name.encode() + b"\n" + seq.tobytes() + b"\n")
+
+
+@pytest.mark.parametrize("scap,frag_len,ncap",
+                         [(100, 1000, None), (256, 3000, None),
+                          (320, 3000, 1016), (1000, 10000, 1016)])
+def test_walk_kernel_matches_plain(cuda_device, tmp_path, scap, frag_len,
+                                   ncap):
+    """K5 on event streams made on the card by the port's own index build,
+    sketch, L1 and build_events (the kernel's precondition holds only for
+    such streams): two diverged references, one with 40 near-identical
+    tandem copies of a 700 bp unit, so equal hashes meet in one window."""
+    rng = np.random.default_rng(scap)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    base = acgt[rng.integers(0, 4, 400_000)]
+    unit = acgt[rng.integers(0, 4, 700)]
+    tandem = np.concatenate([_mutate(rng, unit, 0.01) for _ in range(40)])
+    _write_fasta(tmp_path / "r0.fa", [("r0", _mutate(rng, base, 0.01)),
+                                      ("rep", tandem)])
+    _write_fasta(tmp_path / "r1.fa", [("r1", _mutate(rng, base, 0.03))])
+    params = Parameters(ref_sequences=[str(tmp_path / "r0.fa"),
+                                       str(tmp_path / "r1.fa")],
+                        frag_len=frag_len, sketch_cap=scap,
+                        l2_entry_cap=ncap).finalize()
+    index = ReferenceIndex.build_device(params, device=cuda_device)
+    mapper = jitmap.Mapper(params, index, unit_factor=8)
+    q = np.concatenate([_mutate(rng, tandem, 0.01), _mutate(rng, base, 0.02)])
+    F = len(q) // frag_len
+    frags = torch.as_tensor(q[: F * frag_len].reshape(F, frag_len),
+                            device=cuda_device)
+    cfg, t = mapper.cfg, mapper.tables
+    u = jitmap.locate_units(cfg, frags, t)
+    U = min(u["n_live"], 256)
+    assert U > 20
+    ev, s_u, _, n_ev = l2walk.build_events(
+        *jitmap.l2_chunk_args(cfg, t, u, slice(0, U)))
+    got = l2walk.walk(ev, s_u, n_ev, scap)
+    _eq(got, l2walk.walk_plain(ev, s_u, n_ev, scap))
+    _eq(got, l2walk.walk_recurrence(ev, s_u, n_ev, scap))
+    assert int((got[0] > 0).sum()) > 10
 
 
 def test_run_fast_card_matches_cpu(cuda_device, tmp_path):
