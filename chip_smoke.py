@@ -7,18 +7,27 @@ Phases, one JSON line each; any failure exits non-zero:
 
 1. device: name, count, ``nvidia-smi`` name and power limit; build the
    four CUDA sources (one nvcc each, all at once).
-2. kernels: each of K1-K5 on seeded inputs at the main path's shapes,
-   held bit-equal to its plain PyTorch version on the card; kernel, plain
-   and library times from CUDA events; the bound from bytes and operations.
-   K5 walks real event streams (the port's own index build, sketch, L1 and
-   ``build_events`` on generated genomes, ``real_streams``) at U 512, the
-   main path's chunk, and at U 4096; K4 sorts int32 words with bit 31 set.
-3. golden: tests/test_golden_frozen.py's fixtures (seed 2024) through the
-   port's CLI on the card, against tests/golden/one2one.txt and multi.txt.
-4. main path: bench.py's ``mid`` workload (32 genomes x 3 Mbp,
+2. golden: tests/test_golden_frozen.py's fixtures (seed 2024) through the
+   port's CLI on the card, against tests/golden/one2one.txt and multi.txt
+   (this also warms the path up before phase 3 is timed).
+3. main path: bench.py's ``mid`` workload (32 genomes x 3 Mbp,
    all-vs-all, seed 123) through the port's CLI on the card; phase times,
    genome-pairs/s, peak memory, the counters' maxima, every kernel's
    launches in this run (zeroed just before it).
+4. kernels: K1-K3 at each of their main-path call sites, on the inputs
+   the path itself gives them: ``run_fast`` on the first three mid genomes
+   against all 32 (the mid index, two batches) with the wrappers wrapped,
+   keeping each call site's first inputs and counting its calls.  Each
+   site's launches on mid (index-build calls, plus calls per batch times
+   phase 3's batches) must sum to phase 3's count of its kernel.  K4 sorts
+   int32 words with bit 31 set at the L2 chunk's shape; K5 walks real
+   event streams (the port's own index build, sketch, L1 and
+   ``build_events`` on generated genomes, ``real_streams``) at U 512, the
+   main path's chunk, and at U 4096.  Every kernel is held bit-equal to its
+   plain PyTorch version on the card; kernel and library times from CUDA
+   events around a CUDA graph of 20 calls (the host's cost of a call stays
+   out), plain times from CUDA events around 1-3 calls; the bound from the
+   bytes and operations this run's inputs need.
 
 Then the kernels table, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -64,6 +73,22 @@ SOURCE = {
     "walk": "fastani_tpu_torch/csrc/walk.cu",
 }
 
+# K1-K3's call sites on the main path: (kernel, calling function, rank of
+# the call's line among that function's calls of the kernel) -> label
+SITES = {
+    ("winnow", "flush", 0): "index build rows",
+    ("winnow", "sketch_fragments", 0): "sketch",
+    ("compact", "flush", 0): "index build",
+    ("compact", "sketch_fragments", 0): "sketch emit",
+    ("compact", "sketch_fragments", 1): "first unique",
+    ("compact", "l1_candidates", 0): "L1 leaders",
+    ("compact", "locate_units", 0): "valid units",
+    ("sort", "sketch_fragments", 0): "sketch",
+    ("sort", "l1_candidates", 0): "L1 hits",
+}
+# the site whose numbers stand for the kernel in the kernels table
+TABLE_SITE = {"winnow": "sketch", "compact": "L1 leaders", "sort": "L1 hits"}
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -76,16 +101,27 @@ def nvidia_smi() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
-    """Mean milliseconds per call from CUDA events around ``reps`` calls."""
+def time_ms(torch, fn, reps: int, warmup: int = 1, graph: bool = False):
+    """Mean milliseconds per call from CUDA events around ``reps`` calls;
+    with ``graph``, around one replay of a CUDA graph of ``reps`` calls, so
+    that the host's cost of a call (tens of microseconds of Python around
+    a launch) does not show in the time of a short kernel."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    run, n = fn, reps
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="thread_local"):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        run, n = g.replay, 1
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    for _ in range(reps):
-        fn()
+    for _ in range(n):
+        run()
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
@@ -107,7 +143,7 @@ def bound(nbytes: float, nops: float):
 
 
 # ---------------------------------------------------------------------------
-# phase 2: kernels against their plain versions at the main path's shapes
+# generated genomes
 # ---------------------------------------------------------------------------
 
 def genome_bytes(np, rng, n: int):
@@ -151,6 +187,10 @@ def write_fasta(path, contigs, line_width: int = 70) -> None:
             for i in range(0, len(b), line_width):
                 f.write(b[i: i + line_width] + b"\n")
 
+
+# ---------------------------------------------------------------------------
+# phase 4: kernels against their plain versions at the main path's inputs
+# ---------------------------------------------------------------------------
 
 # integer operations per event of K5's O(1) design (csrc/walk.cu: the rank
 # select and clamps, the packed-word update and forward, P, cnt, the move
@@ -213,153 +253,193 @@ def real_streams(torch, np, dev, sizes=(512, 4096), genome_bp=GENOME_BP):
     return out, cfg.sketch_cap
 
 
-def check_kernels(torch, np):
+def kv_inputs(torch, dev):
+    """K4's inputs at the L2 event merge of the mid run (unit_chunk, 2 *
+    l2_entry_cap + 1), int32 words: keys below 2^31 with the clamped pads
+    tied, payload records over all 32 bits (bit 31 set in about half)."""
     from fastani_tpu_torch.config import Parameters, scale_caps
-    from fastani_tpu_torch.index import device_build
-    from fastani_tpu_torch.models import l2walk
+
+    p = Parameters().finalize()
+    scale_caps(N_GENOMES, p)
+    shape = (min(512, p.frag_batch), 2 * p.l2_entry_cap + 1)
+    keys = torch.randint(0, 2 ** 30, shape, dtype=torch.int32, device=dev)
+    keys[:, 1500:] = (1 << 28) << 2                # clamped pads, tied
+    pay = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, dtype=torch.int32,
+                        device=dev)
+    return keys, pay
+
+
+def capture_sites(torch, paths):
+    """The inputs K1-K3 get on the main path: ``run_fast`` on the first
+    three of ``paths`` against all of them, with each kernel's wrapper
+    wrapped.  Returns ({(kernel, site): {"args", "kw", "calls",
+    "per_batch"}}, batches): each call site's first inputs and its calls
+    (the index build's, or over all batches)."""
+    from fastani_tpu_torch.config import Parameters
+    from fastani_tpu_torch.models import pipeline
     from fastani_tpu_torch.ops import compact, sort, winnow
 
+    wrappers = {"winnow": (winnow, "winnow_rows"),
+                "compact": (compact, "compact_rows"),
+                "sort": (sort, "sort_rows_u32")}
+    seen = {}
+    origs = []
+
+    def wrap(kernel, mod, name):
+        orig = getattr(mod, name)
+
+        def rec(*args, **kw):
+            f = sys._getframe(1)
+            key = (kernel, f.f_code.co_name, f.f_lineno)
+            if key not in seen:
+                seen[key] = {"args": args, "kw": kw, "calls": 0,
+                             "per_batch": f.f_code.co_name != "flush"}
+            seen[key]["calls"] += 1
+            return orig(*args, **kw)
+
+        origs.append((mod, name, orig))
+        setattr(mod, name, rec)
+
+    for kernel, (mod, fn_name) in wrappers.items():
+        wrap(kernel, mod, fn_name)
+    stats = {}
+    try:
+        pipeline.run_fast(Parameters(ref_sequences=paths,
+                                     query_sequences=paths[:3]),
+                          device="cuda", log=lambda m: None, stats=stats)
+    finally:
+        for mod, name, orig in origs:
+            setattr(mod, name, orig)
+    lines = {}
+    for kernel, fn, ln in seen:
+        lines.setdefault((kernel, fn), set()).add(ln)
+    sites = {}
+    for (kernel, fn, ln), v in seen.items():
+        rank = sorted(lines[(kernel, fn)]).index(ln)
+        sites[(kernel, SITES.get((kernel, fn, rank), f"{fn}:{ln}"))] = v
+    return sites, stats["batches"]
+
+
+def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
+    from fastani_tpu_torch.config import Parameters, scale_caps
+    from fastani_tpu_torch.models import l2walk
+    from fastani_tpu_torch.ops import compact, sort, winnow
+    from fastani_tpu_torch.ops.xputils import UMAX
+
     dev = torch.device("cuda")
-    rng = np.random.default_rng(7)
-    # the main path's widths at 32 reference genomes (run_fast's caps)
     p = Parameters().finalize()
-    scale_caps(32, p)
-    k, w, L, B = p.kmer_size, p.window_size, p.frag_len, p.frag_batch
-    scap, hits_cap, cand_cap = p.sketch_cap, p.hits_cap, p.cand_cap
-    unit_cap = B * (int(1.7 * 32) + 8)     # run_fast's unit_factor
-    U, T = min(512, B), 2 * p.l2_entry_cap + 1   # L2 chunk of events
+    scale_caps(N_GENOMES, p)
+    B, scap = p.frag_batch, p.sketch_cap
+    U = min(512, B)                               # L2 chunk of units
     results = {}
 
-    def record(name, shape, outs_k, outs_p, fn_k, fn_p, nbytes, nops,
-               fn_lib=None, reps=20, plain_reps=3, nbytes_u32=None, **extra):
-        """``nbytes`` counts the words the kernel takes (K2 and K3 take u32
-        values in int64 words); ``nbytes_u32`` counts them at 4 bytes, as
-        an int32 view would move them."""
+    def record(name, site, shape, outs_k, outs_p, fn_k, fn_p, nbytes, nops,
+               fn_lib=None, reps=20, plain_reps=3, **extra):
         err = max_abs_err(torch, outs_k, outs_p)
         if err != 0:
-            raise AssertionError(f"{name} at {shape}: kernel differs from "
-                                 f"its plain version (max abs err {err})")
-        ms = time_ms(torch, fn_k, reps)
-        plain_ms = time_ms(torch, fn_p, plain_reps)
-        lib_ms = time_ms(torch, fn_lib, reps) if fn_lib else None
+            raise AssertionError(f"{name} at {site} {shape}: kernel differs "
+                                 f"from its plain version (max abs err "
+                                 f"{err})")
+        ms = time_ms(torch, fn_k, reps, graph=True)
+        plain_ms = time_ms(torch, fn_p, plain_reps, warmup=0)
+        lib_ms = time_ms(torch, fn_lib, reps, graph=True) if fn_lib else None
         b_ms, b_by = bound(nbytes, nops)
-        row = dict(name=name, shape=shape, max_abs_err=err, kernel_ms=ms,
-                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=lib_ms, **extra)
-        if nbytes_u32 is not None:
-            row["bound_u32_ms"], row["bound_u32_by"] = bound(nbytes_u32, nops)
+        row = dict(name=name, site=site, shape=shape, max_abs_err=err,
+                   kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=lib_ms, **extra)
         emit({"phase": "kernel", **row})
-        results[name] = row
+        results[(name, site)] = row
 
-    # K1 winnow: the index build's segment rows (2048 rows, consecutive
-    # rows of 3 Mbp contigs chained) and the fragment sketch (B, w-1+L)
-    genome = genome_bytes(np, rng, 36_000_000)
-    rows_l, ctg_l, base_l, len_l = [], [], [], []
-    for c in range(12):
-        seq = genome[c * 3_000_000:(c + 1) * 3_000_000]
-        r, b = device_build.segment_rows(seq, k, w)
-        rows_l.append(r)
-        ctg_l.append(np.full(len(r), c, np.int32))
-        base_l.append(b)
-        len_l.append(np.full(len(r), len(seq), np.int32))
-    as_t = lambda a: torch.as_tensor(np.concatenate(a)[:B], device=dev)
-    rows, ctg, base, tl = as_t(rows_l), as_t(ctg_l), as_t(base_l), as_t(len_l)
-    run_k = lambda: winnow.winnow_rows(rows, ctg, base, tl, k, w)
-    run_p = lambda: winnow.winnow_rows_plain(rows, ctg, base, tl, k, w)
-    ek, hk, _ = run_k()
-    ep, hp = run_p()
-    err = max_abs_err(torch, [ek, hk], [ep, hp])
-    if err != 0:
-        raise AssertionError(f"winnow (index build rows) differs: {err}")
-    emit({"phase": "kernel", "name": "winnow", "shape": list(rows.shape),
-          "max_abs_err": err, "kernel_ms": time_ms(torch, run_k, 5)})
-    starts = rng.integers(0, len(genome) - L, B)
-    frags = np.stack([genome[s:s + L] for s in starts])
-    frows = torch.as_tensor(np.concatenate(
-        [np.zeros((B, w - 1), np.uint8), frags], axis=1), device=dev)
-    fctg = torch.arange(B, dtype=torch.int32, device=dev)
-    fbase = torch.zeros(B, dtype=torch.int32, device=dev)
-    flen = torch.full((B,), L, dtype=torch.int32, device=dev)
-    n_pos = B * (L - k + 1)
-    record("winnow", list(frows.shape),
-           list(winnow.winnow_rows(frows, fctg, fbase, flen, k, w)[:2]),
-           list(winnow.winnow_rows_plain(frows, fctg, fbase, flen, k, w)),
-           lambda: winnow.winnow_rows(frows, fctg, fbase, flen, k, w),
-           lambda: winnow.winnow_rows_plain(frows, fctg, fbase, flen, k, w),
-           nbytes=frows.numel() + 12 * B + 9 * n_pos,
-           # per position: two murmur3 (~72 32-bit ops each), packing two
-           # k-byte keys (4k), the w-long window scan (2w)
-           nops=(L + w - 1 - k + 1) * B * (2 * 72 + 4 * k) + n_pos * 2 * w)
-    sk_e, sk_h, _ = winnow.winnow_rows(frows, fctg, fbase, flen, k, w)
+    # K1-K3 on the inputs of their call sites; launches on mid per site
+    sites, cap_batches = capture_sites(torch, mid_paths)
+    per_kernel = {}
+    launches = {}
+    for (kernel, site), v in sites.items():
+        n = v["calls"]
+        if v["per_batch"]:
+            if n % cap_batches:
+                raise AssertionError(f"{kernel} at {site}: {n} calls in "
+                                     f"{cap_batches} batches")
+            n = n // cap_batches * mid_batches
+        launches[(kernel, site)] = n
+        per_kernel[kernel] = per_kernel.get(kernel, 0) + n
+    for kernel, n in per_kernel.items():
+        if n != mid_launches[kernel]:
+            raise AssertionError(f"{kernel}: call sites add up to {n} "
+                                 f"launches, mid made {mid_launches[kernel]}")
 
-    # K2 compaction at each main-path shape; timed at the L1 leader shape
-    def k2_case(flags, pays, width):
-        ok = compact.compact_rows(flags, pays, width)
-        op = compact.compact_rows_plain(flags, pays, width)
-        return ok, op
+    for (kernel, site), v in sorted(sites.items()):
+        a, kw = v["args"], v["kw"]
+        n_mid = launches[(kernel, site)]
+        if kernel == "winnow":
+            rows, ctg, base, tl, k, w = a
+            R, W = rows.shape
+            seg = W - (w - 1) - (k - 1)
+            run_k = lambda: winnow.winnow_rows(rows, ctg, base, tl, k, w)
+            run_p = lambda: winnow.winnow_rows_plain(rows, ctg, base, tl, k,
+                                                     w)
+            record("winnow", site, [R, W], list(run_k()[:2]), list(run_p()),
+                   run_k, run_p,
+                   nbytes=rows.numel() + 12 * R + 9 * R * seg,
+                   # per position: two murmur3 (~72 32-bit ops each),
+                   # packing two k-byte keys (4k), the w-long window scan
+                   nops=R * (W - k + 1) * (2 * 72 + 4 * k) + R * seg * 2 * w,
+                   plain_reps=1, launches_mid=n_mid)
+        elif kernel == "compact":
+            flags, pays = a[0], a[1]
+            width = kw.get("width", a[2] if len(a) > 2 else flags.shape[1])
+            R, n = flags.shape
+            # the flag bytes, one word per payload at each flagged position
+            # below the width, the (R, width) outputs written once
+            moved = int(flags.sum(dim=1).clamp(max=width).sum())
+            run_k = lambda: compact.compact_rows(flags, pays, width)
+            run_p = lambda: compact.compact_rows_plain(flags, pays, width)
+            record("compact", site, [R, n, len(pays)], list(run_k()),
+                   list(run_p()), run_k, run_p,
+                   nbytes=R * n + sum(x.element_size() * (moved + R * width)
+                                      for x, _ in pays),
+                   nops=R * n, width=width,
+                   words=[str(x.dtype).replace("torch.", "") for x, _ in pays],
+                   flag_share=float(flags.float().mean()),
+                   launches_mid=n_mid)
+        else:
+            x = a[0]
+            R, n = x.shape
+            # torch.sort over the same int32 words where every key is below
+            # 2^31 (UMAX pads, -1, sort first there: the time is the
+            # yardstick), else over u32 values in int64 words
+            lib_words = "int64"
+            xl = x if x.dtype == torch.int64 else (x.to(torch.int64) & UMAX)
+            if x.dtype == torch.int32 and bool(((x >= 0) | (x == -1)).all()):
+                xl, lib_words = x, "int32"
+            pad = -1 if x.dtype == torch.int32 else UMAX
+            run_k = lambda: sort.sort_rows_u32(x)
+            run_p = lambda: sort.sort_rows_u32_plain(x)
+            # 4-byte keys read once and written once; one operation a key
+            # (no design-free count of a sort's operations)
+            record("sort", site, [R, n], [run_k()], [run_p()], run_k, run_p,
+                   nbytes=R * n * 8, nops=R * n,
+                   fn_lib=lambda: torch.sort(xl, dim=-1),
+                   words=str(x.dtype).replace("torch.", ""),
+                   library_words=lib_words,
+                   real_share=float((x != pad).float().mean()),
+                   launches_mid=n_mid)
+    del sites
 
-    e2 = ek.reshape(-1, 1024)
-    h2 = hk.reshape(-1, 1024)
-    cases = [
-        (e2, [(h2, 0xFFFFFFFF), (h2.to(torch.int32), 2 ** 30)], 256),
-        (sk_e, [(torch.where(sk_e, sk_h, 0xFFFFFFFF), 0xFFFFFFFF)], 2048),
-        (torch.rand(B, 2048, device=dev) < 0.12,
-         [(torch.randint(0, 2 ** 32, (B, 2048), device=dev), 0xFFFFFFFF)],
-         scap),
-        (torch.rand(1, B * cand_cap, device=dev) < 0.25,
-         [(torch.randint(0, 2 ** 20, (1, B * cand_cap), dtype=torch.int32,
-                         device=dev), 0)] * 4, unit_cap),
-    ]
-    for flags, pays, width in cases:
-        ok, op = k2_case(flags, pays, width)
-        err = max_abs_err(torch, ok, op)
-        if err != 0:
-            raise AssertionError(f"compact at {tuple(flags.shape)} differs")
-    lflags = torch.rand(B, hits_cap, device=dev) < 0.004
-    lpays = [(torch.randint(0, 40, (B, hits_cap), device=dev), -1),
-             (torch.randint(0, 3_000_000, (B, hits_cap), device=dev), 0),
-             (torch.arange(hits_cap, device=dev).expand(B, -1).contiguous(),
-              hits_cap)]
-    ok, op = k2_case(lflags, lpays, cand_cap)
-    record("compact", [B, hits_cap, 3], list(ok), list(op),
-           lambda: compact.compact_rows(lflags, lpays, cand_cap),
-           lambda: compact.compact_rows_plain(lflags, lpays, cand_cap),
-           nbytes=B * hits_cap * (1 + 3 * 8) + B * cand_cap * 3 * 8,
-           nops=B * hits_cap * 4,
-           nbytes_u32=B * hits_cap * (1 + 3 * 4) + B * cand_cap * 3 * 4)
-
-    # K3 row sort: the sketch row (B, 2048) and the L1 hit row (B, hits_cap)
+    # K4 key-value sort at the L2 event merge's shape
     def n_cmp(R, n):
         N = 1 << (n - 1).bit_length()
         lg = N.bit_length() - 1
         return R * (N // 2) * lg * (lg + 1) // 2
 
-    sk = torch.randint(0, 2 ** 32, (B, 2048), device=dev)
-    if max_abs_err(torch, [sort.sort_rows_u32(sk)],
-                   [sort.sort_rows_u32_plain(sk)]) != 0:
-        raise AssertionError("sort (B, 2048) differs")
-    hits = torch.randint(0, 2 ** 32, (B, hits_cap), device=dev)
-    hits[:, 5000:] = 0xFFFFFFFF                    # UMAX pads, tied
-    record("sort", [B, hits_cap], [sort.sort_rows_u32(hits)],
-           [sort.sort_rows_u32_plain(hits)],
-           lambda: sort.sort_rows_u32(hits),
-           lambda: sort.sort_rows_u32_plain(hits),
-           nbytes=hits.numel() * 16, nops=n_cmp(B, hits_cap) * 2,
-           fn_lib=lambda: torch.sort(hits, dim=-1),
-           nbytes_u32=hits.numel() * 8)
-
-    # K4 key-value sort: the L2 event merge (unit_chunk, 2 * l2_entry_cap +
-    # 1), int32 words: keys below 2^31 with the clamped pads tied, payload
-    # records over all 32 bits (bit 31 set in about half)
-    kv_keys = torch.randint(0, 2 ** 30, (U, T), dtype=torch.int32, device=dev)
-    kv_keys[:, 1500:] = (1 << 28) << 2             # clamped pads, tied
-    kv_pay = torch.randint(-2 ** 31, 2 ** 31 - 1, (U, T), dtype=torch.int32,
-                           device=dev)
-    record("sort_kv", [U, T], list(sort.sort_rows_u32_kv(kv_keys, kv_pay)),
+    kv_keys, kv_pay = kv_inputs(torch, dev)
+    Uk, T = kv_keys.shape
+    record("sort_kv", "L2 events", [Uk, T],
+           list(sort.sort_rows_u32_kv(kv_keys, kv_pay)),
            list(sort.sort_rows_u32_kv_plain(kv_keys, kv_pay)),
            lambda: sort.sort_rows_u32_kv(kv_keys, kv_pay),
            lambda: sort.sort_rows_u32_kv_plain(kv_keys, kv_pay),
-           nbytes=U * T * 16, nops=n_cmp(U, T) * 2,
+           nbytes=Uk * T * 16, nops=n_cmp(Uk, T) * 2,
            fn_lib=lambda: torch.sort(kv_keys, dim=-1, stable=True))
 
     # K5 walk: real event streams at the main path's chunk (U 512, scap
@@ -370,8 +450,7 @@ def check_kernels(torch, np):
         raise AssertionError(f"stream scap {s_cap} != {scap}")
     for Uw, (ev, s_u, n_ev) in streams.items():
         n_sum = float(n_ev.sum())
-        name = "walk" if Uw == U else f"walk_u{Uw}"
-        record(name, [Uw, ev["dn"].shape[1], scap],
+        record("walk", f"U {Uw}", [Uw, ev["dn"].shape[1], scap],
                list(l2walk.walk(ev, s_u, n_ev, scap)),
                list(l2walk.walk_plain(ev, s_u, n_ev, scap)),
                lambda: l2walk.walk(ev, s_u, n_ev, scap),
@@ -379,11 +458,13 @@ def check_kernels(torch, np):
                nbytes=n_sum * 24 + Uw * 20,
                nops=n_sum * WALK_OPS_PER_EVENT, reps=20, plain_reps=1,
                n_ev_mean=n_sum / Uw, n_ev_max=int(n_ev.max()))
-    return results
+    return {**{k: results[(k, s)] for k, s in TABLE_SITE.items()},
+            "sort_kv": results[("sort_kv", "L2 events")],
+            "walk": results[("walk", f"U {U}")]}
 
 
 # ---------------------------------------------------------------------------
-# phase 3: frozen goldens
+# phase 2: frozen goldens
 # ---------------------------------------------------------------------------
 
 def run_golden(np):
@@ -438,7 +519,7 @@ def run_golden(np):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path at a real size
+# phase 3: the main path at a real size
 # ---------------------------------------------------------------------------
 
 def build_workload(np, workdir: pathlib.Path, n_genomes: int, size: int):
@@ -458,6 +539,8 @@ def build_workload(np, workdir: pathlib.Path, n_genomes: int, size: int):
 
 
 def run_main_path(torch, np, n_genomes: int, size: int):
+    """Returns (launches, genome paths, batches); the genomes stay in
+    .smokework/mid for phase 4."""
     from fastani_tpu_torch import cli
     from fastani_tpu_torch.config import Parameters, scale_caps
     from fastani_tpu_torch.models import jitmap
@@ -516,7 +599,7 @@ def run_main_path(torch, np, n_genomes: int, size: int):
                              f"{matrix_rows} matrix lines")
     if not all(75.0 < a <= 100.0 for a in ani):
         raise AssertionError(f"ANI out of range: {min(ani)}..{max(ani)}")
-    return launches
+    return launches, paths, stats["batches"]
 
 
 def main() -> int:
@@ -539,9 +622,9 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": time.time() - t0, "built": built})
 
-    kernels = check_kernels(torch, np)
     run_golden(np)
-    launches = run_main_path(torch, np, N_GENOMES, GENOME_BP)
+    launches, paths, batches = run_main_path(torch, np, N_GENOMES, GENOME_BP)
+    kernels = check_kernels(torch, np, paths, batches, launches)
 
     table = []
     for name in kc.KERNELS:

@@ -89,7 +89,7 @@ class MapperConfig:
 class IndexTables:
     """The device tables one mapping step reads (padded to a common M)."""
     occ_hash: torch.Tensor      # (M,) int64 lookup-order hashes
-    occ_keys: torch.Tensor      # (M,) int64 L1 hit keys (hit_key_layout)
+    occ_keys: torch.Tensor      # (M,) L1 hit keys (mapping.hit_keys)
     mi_hash: torch.Tensor       # (M,) int64 build-order hashes
     mi_sid: torch.Tensor        # (M,) int32
     mi_wpos: torch.Tensor       # (M,) int32
@@ -253,14 +253,12 @@ class Mapper:
             return out
 
         occ_hash = pad(index.occ_hash, UMAX)
-        occ_sid = pad(index.occ_seqid, PINF).to(torch.int64)
-        occ_wpos = pad(index.occ_wpos, PINF).to(torch.int64)
         mi_hash = pad(index.mi_hash, UMAX)
         mi_sid = pad(index.mi_seqid, PINF)
         mi_wpos = pad(index.mi_wpos, PINF)
-        shift, key_pad = mapping.hit_key_layout(self.cfg.wpos_bits)
-        occ_keys = torch.where(torch.arange(Mp, device=dev) < M,
-                               (occ_sid << shift) | occ_wpos, key_pad)
+        occ_keys = mapping.hit_keys(pad(index.occ_seqid, PINF),
+                                    pad(index.occ_wpos, PINF), M,
+                                    self.cfg.wpos_bits)
         order = index.occ_order
         if order is None or len(order) != Mp:
             order = torch.sort(mi_hash, stable=True).indices

@@ -10,7 +10,11 @@ and ``_searchsorted_pairs``).
   gather of (seqId, wpos) keys, the hit sort (K3 for 32-bit keys), the
   min-hits partner test, in-place chain merge, K2 for the group leaders.
 
-u32 values (hashes, packed keys) are int64 tensors; UMAX pads.
+u32 values cross K2 and K3 as int32 words holding their bit patterns
+(UMAX pads are -1): the sketch's hashes from where they are made until
+``qh``, which goes back to int64 u32 values, and the 32-bit hit keys from
+the index's ``occ_keys`` on.  A field read from an int32 word masks after
+the arithmetic shift, since bit 31 may be set.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ import torch
 
 from fastani_tpu_torch.ops import compact, sort, winnow
 from fastani_tpu_torch.ops.xputils import (PINF, UMAX, last_event_value,
-                                           shift_left, shift_right)
+                                           shift_left, shift_right,
+                                           u32_as_i32)
 
 
 def sketch_fragments(frags: torch.Tensor, k: int, w: int, scap: int):
@@ -41,7 +46,7 @@ def sketch_fragments(frags: torch.Tensor, k: int, w: int, scap: int):
         torch.full((F,), L, dtype=torch.int32, device=dev), k, w)
     n = h.shape[-1]
     n_emit = emit.sum(dim=-1)
-    keys0 = torch.where(emit, h, UMAX)
+    keys0 = torch.where(emit, u32_as_i32(h), -1)
     # emitted minimizers are sparse (~2/(w+1) of positions): compact them
     # into a narrow row first and sort only that; the narrow width bounds
     # the emit count, and an overflow joins the sketch overflow
@@ -49,7 +54,7 @@ def sketch_fragments(frags: torch.Tensor, k: int, w: int, scap: int):
     while n_cap < 4 * scap:
         n_cap *= 2
     if n_cap < n:
-        (hc,) = compact.compact_rows(emit, [(keys0, UMAX)], width=n_cap)
+        (hc,) = compact.compact_rows(emit, [(keys0, -1)], width=n_cap)
         hk = sort.sort_rows_u32(hc)
         emit_over = n_emit > n_cap
     else:
@@ -58,10 +63,10 @@ def sketch_fragments(frags: torch.Tensor, k: int, w: int, scap: int):
     nw = hk.shape[-1]
     j = torch.arange(nw, device=dev)[None, :]
     within = j < n_emit[:, None]
-    first = within & ((j == 0) | (hk != shift_right(hk, 1, UMAX)))
+    first = within & ((j == 0) | (hk != shift_right(hk, 1, -1)))
     s = first.sum(dim=-1)
-    (qh,) = compact.compact_rows(first, [(hk, UMAX)], width=scap)
-    return qh, s, (s > scap) | emit_over
+    (qh,) = compact.compact_rows(first, [(hk, -1)], width=scap)
+    return qh.to(torch.int64) & UMAX, s, (s > scap) | emit_over
 
 
 @dataclasses.dataclass
@@ -77,11 +82,23 @@ class L1Result:
 
 def hit_key_layout(wpos_bits: Optional[int]):
     """(shift, pad) of the L1 hit keys seqId << shift | wpos: 32-bit keys
-    (sorted by K3, UMAX pads) when the index fits ``wpos_bits``, else
-    64-bit keys with shift 32 (int64-max pads)."""
+    in int32 words (sorted by K3; pads UMAX, the word -1) when the index
+    fits ``wpos_bits``, else int64 keys with shift 32 (int64-max pads)."""
     if wpos_bits is None:
         return 32, (1 << 63) - 1
-    return wpos_bits, UMAX
+    return wpos_bits, -1
+
+
+def hit_keys(sid: torch.Tensor, wpos: torch.Tensor, n: int,
+             wpos_bits: Optional[int]) -> torch.Tensor:
+    """The L1 hit keys of lookup-order (seqId, wpos) arrays in the layout of
+    ``hit_key_layout(wpos_bits)``, pads past the n true entries."""
+    shift, pad = hit_key_layout(wpos_bits)
+    keys = (sid.to(torch.int64) << shift) | wpos.to(torch.int64)
+    live = torch.arange(len(keys), device=keys.device) < n
+    if wpos_bits is None:
+        return torch.where(live, keys, pad)
+    return u32_as_i32(torch.where(live, keys, UMAX))
 
 
 def l1_candidates(qh, s, occ_hash, occ_keys, n_occ: int, min_hits_lut,
@@ -118,15 +135,20 @@ def l1_candidates(qh, s, occ_hash, occ_keys, n_occ: int, min_hits_lut,
     # than 32 bits take torch.sort, as the JAX package lexsorts them
     # outside its Pallas sort
     shift, pad = hit_key_layout(wpos_bits)
-    mask = (1 << shift) - 1
     key = torch.where(hvalid, occ_keys[src], pad)
     if wpos_bits is None:
         key = torch.sort(key, dim=-1).values
     else:
         key = sort.sort_rows_u32(key)
+    sid_mask = (1 << (8 * key.element_size() - shift)) - 1
+
+    def fields(k, ok):
+        """int32 (seqId, wpos) of keys k, PINF where not ok"""
+        return (torch.where(ok, (k >> shift) & sid_mask, PINF).to(torch.int32),
+                torch.where(ok, k & ((1 << shift) - 1), PINF).to(torch.int32))
+
     hvalid = key != pad
-    hit_sid = torch.where(hvalid, key >> shift, PINF)
-    hit_wp = torch.where(hvalid, key & mask, PINF)
+    hit_sid, hit_wp = fields(key, hvalid)
 
     # consecutive-hit window test (computeMap.hpp:322-336): the partner of
     # hit i is hit i + m - 1, m = minimum hits for the fragment's sketch size
@@ -136,8 +158,7 @@ def l1_candidates(qh, s, occ_hash, occ_keys, n_occ: int, min_hits_lut,
                        torch.gather(key, 1, partner.clamp(max=hits_cap - 1)),
                        pad)
     p_ok = key2 != pad
-    sid2 = torch.where(p_ok, key2 >> shift, PINF)
-    wp2 = torch.where(p_ok, key2 & mask, PINF)
+    sid2, wp2 = fields(key2, p_ok)
     cand_valid = hvalid & p_ok & (sid2 == hit_sid) & (wp2 - hit_wp < frag_len)
     cand_start = (wp2 - frag_len + 1).clamp(min=0)
     cand_end = hit_wp
@@ -151,10 +172,11 @@ def l1_candidates(qh, s, occ_hash, occ_keys, n_occ: int, min_hits_lut,
     n_groups = new_group.sum(dim=-1)
     overflow = overflow | (n_groups > cand_cap)
 
-    # group leaders to the front (K2): (sid, start, hit position)
+    # group leaders to the front (K2): (sid, start, hit position), int32
+    hpos = torch.arange(hits_cap, dtype=torch.int32, device=dev)
     g_sid, g_start, lpos = compact.compact_rows(
         new_group, [(hit_sid, -1), (cand_start, 0),
-                    (hidx[None, :].expand(F, hits_cap).contiguous(), hits_cap)],
+                    (hpos[None, :].expand(F, hits_cap).contiguous(), hits_cap)],
         width=cand_cap)
     gcount = torch.arange(cand_cap, device=dev)[None, :]
     g_valid = gcount < n_groups.clamp(max=cand_cap)[:, None]
@@ -162,10 +184,10 @@ def l1_candidates(qh, s, occ_hash, occ_keys, n_occ: int, min_hits_lut,
     # next leader (for the last group: before the end of the row)
     last_member = torch.where(gcount + 1 < n_groups[:, None],
                               shift_left(lpos, 1, hits_cap) - 1, hits_cap - 1)
-    g_end = torch.gather(last_end, 1, last_member.clamp(0, hits_cap - 1))
+    g_end = torch.gather(last_end, 1,
+                         last_member.clamp(0, hits_cap - 1).to(torch.int64))
     g_sid = torch.where(g_valid, g_sid, -1)
-    i32 = lambda x: x.to(torch.int32)
-    return L1Result(i32(g_sid), i32(g_start), i32(g_end), g_valid, overflow,
+    return L1Result(g_sid, g_start, g_end, g_valid, overflow,
                     n_hits=total, n_groups=n_groups)
 
 

@@ -17,6 +17,19 @@ import torch
 from fastani_tpu_torch.ops import cuda
 
 _MAX_PAYLOADS = 4
+_MAX_THREADS = 256     # a block's threads; each takes 16 flags a tile
+_BLOCKS = 2048         # blocks a launch spreads few long rows over
+
+
+def compact_geometry(R: int, n: int) -> Tuple[int, int]:
+    """(threads, chunks) of the kernel's launch: blocks just wide enough
+    for a row at 16 flags a thread (at most 256 threads), and each row cut
+    into ``chunks`` blocks of whole tiles when there are too few rows to
+    fill the card (one block a row from 2048 rows up)."""
+    groups = -(-n // 16)
+    threads = min(_MAX_THREADS, max(32, -(-groups // 32) * 32))
+    tiles = -(-n // (16 * threads))
+    return threads, max(1, min(tiles, _BLOCKS // max(R, 1)))
 
 
 def compact_rows(flags: torch.Tensor,
@@ -38,19 +51,25 @@ def compact_rows(flags: torch.Tensor,
             raise ValueError("compact_rows: payloads must be (R, n) int32/int64")
     if flags.device.type == "cpu":
         return compact_rows_plain(flags, payloads, width)
-    f8 = flags.to(torch.uint8).contiguous()
+    if flags.dtype != torch.bool:
+        raise ValueError(f"compact_rows: bool flags expected, got {flags.dtype}")
+    f8 = flags.contiguous().view(torch.uint8)      # the same bytes, no copy
     ins = [a.contiguous() for a, _ in payloads]
     cuda.require_cuda("compact_rows", f8, *ins)
     outs = [torch.empty((R, width), dtype=a.dtype, device=a.device)
             for a in ins]
     if R and width:
         npay = len(ins)
+        threads, chunks = compact_geometry(R, n)
+        counts = (torch.empty(R * chunks, dtype=torch.int32, device=f8.device)
+                  if chunks > 1 else None)
         in_p = (ctypes.c_void_p * _MAX_PAYLOADS)(*[a.data_ptr() for a in ins])
         out_p = (ctypes.c_void_p * _MAX_PAYLOADS)(*[o.data_ptr() for o in outs])
         esz = (ctypes.c_int * _MAX_PAYLOADS)(*[a.element_size() for a in ins])
         fill = (ctypes.c_longlong * _MAX_PAYLOADS)(*[int(f) for _, f in payloads])
         err = cuda.lib("compact").fa_compact_rows(
-            f8.data_ptr(), R, n, width, npay, in_p, out_p, esz, fill,
+            f8.data_ptr(), R, n, width, threads, chunks, npay, in_p, out_p,
+            esz, fill, None if counts is None else counts.data_ptr(),
             cuda.stream())
         cuda.check(err, "compact")
         cuda.LAUNCHES["compact"] += 1

@@ -52,8 +52,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "winnow": {"fa_winnow_rows": [_P, _P, _P, _P, _I, _I, _I, _I,
                                   _P, _P, _P, _P, _P, _P]},
-    "compact": {"fa_compact_rows": [_P, _I, _I, _I, _I, _P, _P, _P, _P,
-                                    _P]},
+    "compact": {"fa_compact_rows": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                                    _P, _P, _P]},
     "sort": {"fa_sort_rows_u32": [_P, _P, _I, _I, _P],
              "fa_sort_rows_u32_kv": [_P, _P, _P, _P, _I, _I, _P]},
     "walk": {"fa_walk": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -3,14 +3,14 @@
 ``sort_rows_u32_kv``).
 
 On CUDA tensors the wrappers launch ``csrc/sort.cu``; on CPU tensors they
-run the plain PyTorch version, the same bitonic network as vectorized
+run the plain PyTorch version, a bitonic network as vectorized
 compare-exchange stages.  Rows of any width up to the limit work: the
 network pads with UMAX to a power of two and only the first n columns come
-back.  K3 takes int64 tensors holding u32 values.  K4 takes int32 words
-holding u32 bit patterns on the card (its plain version takes int32 or
-int64, treats both as u32 and answers in the dtype it was given); it is
-stable (it sorts ``key << 32 | column`` composites), so its payload is a
-true permutation even on tied keys.
+back.  On the card both take int32 words holding u32 bit patterns (UMAX is
+-1) and raise on other dtypes; their plain versions take int32 or int64,
+treat both as u32 and answer in the dtype they were given.  K4 is stable
+(it sorts ``key << 32 | column`` composites), so its payload is a true
+permutation even on tied keys.
 """
 
 from __future__ import annotations
@@ -48,13 +48,17 @@ def _bitonic(x: torch.Tensor) -> torch.Tensor:
 
 
 def sort_rows_u32(x: torch.Tensor) -> torch.Tensor:
-    """Ascending per-row sort of (R, n) int64 keys holding u32 values."""
+    """Ascending per-row sort of (R, n) u32 keys; on the card int32 words
+    holding u32 bit patterns, in and out."""
     R, n = x.shape
     if n > MAX_KEYS:
         raise ValueError(f"sort_rows_u32: width {n} > {MAX_KEYS}")
     if x.device.type == "cpu":
         return sort_rows_u32_plain(x)
-    x = x.to(torch.int64).contiguous()
+    if x.dtype != torch.int32:
+        raise ValueError(f"sort_rows_u32: int32 words expected on the card, "
+                         f"got {x.dtype}")
+    x = x.contiguous()
     cuda.require_cuda("sort_rows_u32", x)
     out = torch.empty_like(x)
     if R and n:
@@ -66,10 +70,13 @@ def sort_rows_u32(x: torch.Tensor) -> torch.Tensor:
 
 
 def sort_rows_u32_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3: int32 or int64 words, both read as u32; the
+    output keeps the input dtype."""
     R, n = x.shape
     N = _pow2(n)
     pad = torch.full((R, N - n), UMAX, dtype=torch.int64, device=x.device)
-    return _bitonic(torch.cat([x.to(torch.int64), pad], dim=1))[:, :n]
+    out = _bitonic(torch.cat([x.to(torch.int64) & UMAX, pad], dim=1))[:, :n]
+    return u32_as_i32(out) if x.dtype == torch.int32 else out
 
 
 def sort_rows_u32_kv(keys: torch.Tensor, payload: torch.Tensor):

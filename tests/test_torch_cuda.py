@@ -63,18 +63,71 @@ def test_compact_kernel_matches_plain(cuda_device):
             compact.compact_rows_plain(flags, pays, width))
 
 
+def _pays(g, R, n, dtypes, dev):
+    fills = {torch.int32: -1, torch.int64: 0xFFFFFFFF}
+    return [(torch.randint(-2 ** 31, 2 ** 31 - 1, (R, n), generator=g,
+                           dtype=torch.int32).to(dev) if dt == torch.int32
+             else torch.randint(0, 2 ** 32, (R, n), generator=g).to(dev),
+             fills[dt]) for dt in dtypes]
+
+
+@pytest.mark.parametrize("width", [30000, 65536, 126976, 262144])
+def test_compact_kernel_one_long_row(cuda_device, width):
+    """The valid-unit shape: one row of 262144 (split over many blocks),
+    its ~65500 flagged positions above, near and below the width; four
+    int32 payloads as on the main path."""
+    g = torch.Generator(device="cpu").manual_seed(width)
+    flags = (torch.rand(1, 262144, generator=g) < 0.25).to(cuda_device)
+    pays = _pays(g, 1, 262144, [torch.int32] * 4, cuda_device)
+    _eq(compact.compact_rows(flags, pays, width),
+        compact.compact_rows_plain(flags, pays, width))
+
+
+@pytest.mark.parametrize("R,n,width,dtypes", [
+    (3, 262144, 126976, (torch.int32, torch.int64)),
+    (5, 8192, 128, (torch.int32,) * 3),
+    (6, 4097, 5000, (torch.int64, torch.int32, torch.int64, torch.int32)),
+    (9, 2985, 2048, (torch.int32,)),
+    (40, 1024, 256, (torch.int64, torch.int32)),
+    (4, 33, 7, (torch.int64,))])
+def test_compact_kernel_tiles_and_payloads(cuda_device, R, n, width, dtypes):
+    """Counts that cross tile edges (tiles of 16 flags a thread), rows of
+    every and of no position flagged, rows not 16-byte aligned (2985,
+    4097, 33), and 1-4 payloads mixing int32 and int64 words."""
+    g = torch.Generator(device="cpu").manual_seed(R * n)
+    flags = torch.rand(R, n, generator=g) < 0.3
+    flags[0] = True
+    flags[1] = False
+    if n > 4096:
+        flags[2] = False
+        flags[2, 4000:4200] = True          # a run across the first tile edge
+    flags = flags.to(cuda_device)
+    pays = _pays(g, R, n, dtypes, cuda_device)
+    _eq(compact.compact_rows(flags, pays, width),
+        compact.compact_rows_plain(flags, pays, width))
+
+
 @pytest.mark.parametrize("n", [200, 1000, 2048, 7680, 16384, 32768])
 def test_sort_kernels_match_plain(cuda_device, n):
     g = torch.Generator(device="cpu").manual_seed(n)
-    x = torch.randint(0, 2 ** 32, (3, n), generator=g).to(cuda_device)
+    x = torch.randint(0, 2 ** 32, (4, n), generator=g).to(cuda_device)
     x[:, ::3] = x[:, :1]                          # ties
-    _eq([sort.sort_rows_u32(x)], [sort.sort_rows_u32_plain(x)])
+    x[1, n // 9:] = 0xFFFFFFFF                    # mostly UMAX pads
+    x[2] = 0xFFFFFFFF                             # only pads
+    # K3 on int32 words with bit 31 set; int64 words on the card raise
+    k = u32_as_i32(x)
+    assert bool((k < -1).any())
+    got = sort.sort_rows_u32(k)
+    assert got.dtype == torch.int32
+    _eq([got], [sort.sort_rows_u32_plain(k)])
+    _eq([got.to(torch.int64) & 0xFFFFFFFF], [sort.sort_rows_u32_plain(x)])
+    with pytest.raises(ValueError):
+        sort.sort_rows_u32(x)
     if n <= sort.MAX_KV:
         # K4 on int32 words: keys and payload over all 32 bits, bit 31 set
-        k = u32_as_i32(x)
-        p = torch.randint(-2 ** 31, 2 ** 31 - 1, (3, n), generator=g,
+        p = torch.randint(-2 ** 31, 2 ** 31 - 1, (4, n), generator=g,
                           dtype=torch.int32).to(cuda_device)
-        assert bool((k < 0).any()) and bool((p < 0).any())
+        assert bool((p < 0).any())
         got = sort.sort_rows_u32_kv(k, p)
         assert got[0].dtype == got[1].dtype == torch.int32
         _eq(got, sort.sort_rows_u32_kv_plain(k, p))

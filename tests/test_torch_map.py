@@ -52,8 +52,12 @@ def world(tmp_path_factory):
     return jp, jidx, tp, tidx, frags
 
 
-@pytest.mark.parametrize("packed", [True, False], ids=["u32_keys", "u64_keys"])
-def test_sketch_and_l1_match_numpy_backend(world, packed):
+@pytest.mark.parametrize("layout", ["u32_keys", "u64_keys", "u32_keys_bit31"])
+def test_sketch_and_l1_match_numpy_backend(world, layout):
+    """Sketch and L1 against the JAX numpy backend, with the hit keys packed
+    in int32 words (u32_keys), in int64 (u64_keys), and packed with every
+    seqId offset by 1 << (31 - wpos_bits) in both, so that bit 31 of every
+    packed key is set (u32_keys_bit31)."""
     jp, jidx, tp, tidx, frags = world
     k, w, l = jp.kmer_size, jp.window_size, jp.frag_len
     want_qh, want_s, want_ov = jmap.sketch_fragments(np, frags, k, w,
@@ -70,13 +74,15 @@ def test_sketch_and_l1_match_numpy_backend(world, packed):
     occ_w = np.asarray(jidx.occ_wpos)[:n]
     lut = jstats.min_hits_lut(k, jp.percentage_identity, jp.sketch_cap)
     hits_cap, cand_cap = 2048, 16
-    want = jmap.l1_candidates(np, want_qh, want_s, occ_h, occ_s, occ_w, lut,
-                              jidx.freq_threshold, l, hits_cap, cand_cap)
-    wpos_bits = jitmap.MapperConfig.from_params(
-        tp, tidx.freq_threshold, index=tidx).wpos_bits if packed else None
-    shift, pad = mapping.hit_key_layout(wpos_bits)
-    keys = (tidx.occ_seqid.long() << shift) | tidx.occ_wpos.long()
-    keys = torch.where(torch.arange(len(keys)) < n, keys, pad)
+    wpos_bits = None if layout == "u64_keys" else jitmap.MapperConfig.from_params(
+        tp, tidx.freq_threshold, index=tidx).wpos_bits
+    off = 1 << (31 - wpos_bits) if layout == "u32_keys_bit31" else 0
+    want = jmap.l1_candidates(np, want_qh, want_s, occ_h, occ_s + off, occ_w,
+                              lut, jidx.freq_threshold, l, hits_cap, cand_cap)
+    keys = mapping.hit_keys(tidx.occ_seqid + off, tidx.occ_wpos, n, wpos_bits)
+    assert keys.dtype == (torch.int64 if wpos_bits is None else torch.int32)
+    if off:
+        assert bool((keys[:n] < -1).all())            # bit 31 set, not pads
     got = mapping.l1_candidates(
         qh, s, tidx.occ_hash, keys, n, torch.from_numpy(lut.astype(np.int64)),
         tidx.freq_threshold, l, hits_cap, cand_cap, wpos_bits)

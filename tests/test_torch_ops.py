@@ -90,18 +90,85 @@ def test_compact_rows_matches_jax_fallback():
     np.testing.assert_array_equal(emit.sum(1), np.asarray(want_cnt))
 
 
-@pytest.mark.parametrize("n", [1024, 2033, 8192])
-def test_sort_rows_match_jax_sort(n):
+@pytest.mark.parametrize("n,words", [(1024, "int64"), (2033, "int64"),
+                                     (8192, "int64"), (8192, "int32")],
+                         ids=["1024", "2033", "8192", "8192-int32_words"])
+def test_sort_rows_match_jax_sort(n, words):
     """K3 plain vs the JAX package's non-Pallas row sort (``xp.sort``,
-    models/mapping.py:345)."""
+    models/mapping.py:345), on u32 values in int64 words and on int32 words
+    holding the u32 bit patterns (bit 31 set in about half, ties, rows
+    mostly of UMAX pads, the word -1), which must also equal the int64
+    path."""
     import jax.numpy as jnp
 
     rng = np.random.default_rng(n)
     x = rng.integers(0, 2 ** 32, (4, n), dtype=np.uint32)
     x[0, :7] = [0xFFFFFFFF, 0, 5, 5, 5, 1, 0xFFFFFFFF]
-    got = sort.sort_rows_u32(torch.from_numpy(x.astype(np.int64))).numpy()
+    x[1, ::3] = x[1, 1]                       # ties
+    x[2, 300:] = 0xFFFFFFFF                   # pads, as the main path's rows
     want = np.asarray(jnp.sort(jnp.asarray(x), axis=1))
-    np.testing.assert_array_equal(got, want.astype(np.int64))
+    got64 = sort.sort_rows_u32(torch.from_numpy(x.astype(np.int64)))
+    np.testing.assert_array_equal(got64.numpy(), want.astype(np.int64))
+    if words == "int32":
+        got = sort.sort_rows_u32(torch.from_numpy(x.view(np.int32)))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+        np.testing.assert_array_equal(got.numpy().astype(np.int64)
+                                      & 0xFFFFFFFF, got64.numpy())
+
+
+def _compact_np(flags, pays, width):
+    """Row by row: the flagged values in order, cut to width, then fill."""
+    outs = []
+    for a, fill in pays:
+        out = np.full((flags.shape[0], width), fill, a.dtype)
+        for r in range(flags.shape[0]):
+            v = a[r][flags[r]][:width]
+            out[r, :len(v)] = v
+        outs.append(out)
+    return outs
+
+
+@pytest.mark.parametrize("R,n,width", [(1, 262144, 60000), (1, 262144, 65536),
+                                       (1, 262144, 126976), (6, 8192, 128),
+                                       (5, 2985, 2048)])
+def test_compact_rows_int32_match_numpy(R, n, width):
+    """K2 (its plain version on the CPU) with bool flags and int32 payloads
+    beside an int64 one: a single row of 262144 (the valid-unit
+    compaction) whose count (~65500) lies above, near and below the width,
+    and rows with every or no position flagged."""
+    rng = np.random.default_rng(n + width)
+    flags = rng.random((R, n)) < 0.25
+    if R > 1:
+        flags[0] = True
+        flags[1] = False
+    pays = [(rng.integers(-2 ** 31, 2 ** 31, (R, n)).astype(np.int32), -1),
+            (rng.integers(0, 2 ** 20, (R, n)).astype(np.int32), 0),
+            (rng.integers(0, 2 ** 32, (R, n)), 0xFFFFFFFF)]
+    got = compact.compact_rows(torch.from_numpy(flags),
+                               [(torch.from_numpy(a), f) for a, f in pays],
+                               width=width)
+    for g, want in zip(got, _compact_np(flags, pays, width)):
+        assert g.dtype == torch.from_numpy(want).dtype
+        np.testing.assert_array_equal(g.numpy(), want)
+
+
+@pytest.mark.parametrize("R,n", [(1, 262144), (1, 1), (2048, 8192),
+                                 (34816, 1024), (16, 2985)])
+def test_compact_geometry_covers_rows(R, n):
+    """The kernel's launch shape: blocks of whole warps up to 256 threads,
+    tiles of 16 flags a thread, chunks of whole tiles that cover the row,
+    one block a row from 2048 rows up, a long single row over 64 blocks."""
+    threads, chunks = compact.compact_geometry(R, n)
+    assert threads % 32 == 0 and 32 <= threads <= 256
+    tile = 16 * threads
+    tiles = -(-n // tile)
+    assert 1 <= chunks <= max(tiles, 1)
+    assert -(-tiles // chunks) * tile * chunks >= n
+    if R >= 2048:
+        assert chunks == 1
+    if (R, n) == (1, 262144):
+        assert (threads, chunks) == (256, 64)
 
 
 def test_sort_rows_kv_matches_jax_argsort():
