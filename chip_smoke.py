@@ -14,6 +14,12 @@ Phases, one JSON line each; any failure exits non-zero:
    all-vs-all, seed 123) through the port's CLI on the card; phase times,
    genome-pairs/s, peak memory, the counters' maxima, every kernel's
    launches in this run (zeroed just before it).
+3b. redo: the golden fixtures through ``run_fast`` on the card with
+   ``l2_entry_cap`` 128, under the span of every mapped fragment, so each
+   query genome is redone exactly (``pipeline._redo_query_exact``); held
+   against the port's CPU run of the same inputs (same rows, equal counts,
+   ANI within 1e-3); its launches (zeroed just before it), the queries
+   redone and the overflowed fragments, which must be > 0.
 4. kernels: K1-K3 at each of their main-path call sites, on the inputs
    the path itself gives them: ``run_fast`` on the first three mid genomes
    against all 32 (the mid index, two batches) with the wrappers wrapped,
@@ -27,7 +33,12 @@ Phases, one JSON line each; any failure exits non-zero:
    plain PyTorch version on the card; kernel and library times from CUDA
    events around a CUDA graph of 20 calls (the host's cost of a call stays
    out), plain times from CUDA events around 1-3 calls; the bound from the
-   bytes and operations this run's inputs need.
+   bytes and operations this run's inputs need.  K1's operations are two
+   murmur3 a k-mer start, each counted from the compiled code
+   (``cuobjdump -sass`` of ``fa_winnow_murmur_probe``: every integer
+   instruction one operation, a multiply-add two, as the float32 rate
+   counts an FMA); its line also prints the bound by the formula of the
+   row-per-block kernel it replaced (``bound_row_kernel_ms``).
 
 Then the kernels table, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -135,6 +146,34 @@ def max_abs_err(torch, xs, ys) -> float:
         d = (x.to(torch.int64) - y.to(torch.int64)).abs()
         err = max(err, float(d.max()) if d.numel() else 0.0)
     return err
+
+
+def murmur_sass_ops(kc) -> dict:
+    """The instructions of one murmur3 (k = 16) in the compiled K1 source:
+    the SASS of ``fa_winnow_murmur_probe`` between its last load and its
+    store.  Returns the counts and ``ops`` (a multiply-add counted as two
+    operations, any other instruction as one)."""
+    cuobjdump = pathlib.Path(kc.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", "-fun", "fa_winnow_murmur_probe",
+         str(kc._lib_path(kc.SOURCES["winnow"]))], capture_output=True,
+        text=True, check=True).stdout
+    ops = []
+    for ln in sass.splitlines():
+        text = ln.split("*/", 1)[1].split(";")[0].split() \
+            if ln.strip().startswith("/*") and "*/" in ln else []
+        if text and text[0].startswith("@"):          # a predicate
+            text = text[1:]
+        if text and text[0][:1].isalpha():
+            ops.append(text[0])
+    last_ld = max(i for i, o in enumerate(ops) if o.startswith("LDG"))
+    first_st = min(i for i, o in enumerate(ops) if o.startswith("STG"))
+    body = ops[last_ld + 1:first_st]
+    # IMAD.MOV, IMAD.SHL and IMAD.IADD are a move, a shift and an add
+    n_mad = sum(o.startswith("IMAD") and not o.startswith(
+        ("IMAD.MOV", "IMAD.SHL", "IMAD.IADD")) for o in body)
+    return {"instructions": len(body), "multiply_adds": n_mad,
+            "ops": len(body) + n_mad}
 
 
 def bound(nbytes: float, nops: float):
@@ -324,6 +363,7 @@ def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
     from fastani_tpu_torch.config import Parameters, scale_caps
     from fastani_tpu_torch.models import l2walk
     from fastani_tpu_torch.ops import compact, sort, winnow
+    from fastani_tpu_torch.ops import cuda as kc
     from fastani_tpu_torch.ops.xputils import UMAX
 
     dev = torch.device("cuda")
@@ -368,6 +408,7 @@ def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
             raise AssertionError(f"{kernel}: call sites add up to {n} "
                                  f"launches, mid made {mid_launches[kernel]}")
 
+    murmur = murmur_sass_ops(kc)
     for (kernel, site), v in sorted(sites.items()):
         a, kw = v["args"], v["kw"]
         n_mid = launches[(kernel, site)]
@@ -378,13 +419,22 @@ def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
             run_k = lambda: winnow.winnow_rows(rows, ctg, base, tl, k, w)
             run_p = lambda: winnow.winnow_rows_plain(rows, ctg, base, tl, k,
                                                      w)
-            record("winnow", site, [R, W], list(run_k()[:2]), list(run_p()),
+            # the row-per-block kernel's formula: int64 hashes out (9
+            # bytes a position); per position two murmur3 (~72 32-bit ops
+            # each), packing two k-byte keys (4k), the w-long window scan
+            old_ms, old_by = bound(
+                rows.numel() + 12 * R + 9 * R * seg,
+                R * (W - k + 1) * (2 * 72 + 4 * k) + R * seg * 2 * w)
+            record("winnow", site, [R, W], list(run_k()), list(run_p()),
                    run_k, run_p,
-                   nbytes=rows.numel() + 12 * R + 9 * R * seg,
-                   # per position: two murmur3 (~72 32-bit ops each),
-                   # packing two k-byte keys (4k), the w-long window scan
-                   nops=R * (W - k + 1) * (2 * 72 + 4 * k) + R * seg * 2 * w,
-                   plain_reps=1, launches_mid=n_mid)
+                   # the rows and (ctg, base, len) read, 1-byte emits and
+                   # 4-byte hashes written; two murmur3 a k-mer start
+                   nbytes=rows.numel() + 12 * R + 5 * R * seg,
+                   nops=R * (W - k + 1) * 2 * murmur["ops"],
+                   plain_reps=1, launches_mid=n_mid,
+                   bound_row_kernel_ms=old_ms, bound_row_kernel_by=old_by,
+                   murmur_sass=murmur,
+                   tiles=list(winnow.tile_geometry(seg)))
         elif kernel == "compact":
             flags, pays = a[0], a[1]
             width = kw.get("width", a[2] if len(a) > 2 else flags.shape[1])
@@ -468,6 +518,7 @@ def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
 # ---------------------------------------------------------------------------
 
 def run_golden(np):
+    """Returns the fixtures' directory (kept for the redo phase)."""
     from fastani_tpu_torch import cli
 
     wd = WORK / "golden"
@@ -516,6 +567,63 @@ def run_golden(np):
                   "max_ani_diff": dev_max})
     finally:
         os.chdir(cwd)
+    return wd
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the exact redo of cap-overflowed query genomes
+# ---------------------------------------------------------------------------
+
+def run_redo(torch, wd: pathlib.Path):
+    """The golden fixtures through ``run_fast`` on the card at
+    ``l2_entry_cap`` 128 (a clean mapping spans ~480 index entries, so
+    every mapped fragment overflows L2 and both query genomes are redone),
+    against the port's run of the same inputs on the CPU."""
+    from fastani_tpu_torch.config import Parameters
+    from fastani_tpu_torch.models import pipeline
+    from fastani_tpu_torch.ops import cuda as kc
+
+    def run(device):
+        stats = {}
+        p = Parameters(query_sequences=[str(wd / "multi.fa"),
+                                        str(wd / "base.fa")],
+                       ref_sequences=[str(wd / "strainA.fa"),
+                                      str(wd / "strainB.fa")],
+                       l2_entry_cap=128)
+        t0 = time.time()
+        rows = pipeline.run_fast(p, device=device, log=lambda m: None,
+                                 stats=stats)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return {(e.qry_genome, e.ref_genome): e for e in rows}, stats, \
+            time.time() - t0
+
+    torch.cuda.synchronize()
+    kc.reset_launches()
+    got, st, t_card = run("cuda")
+    launches = dict(kc.LAUNCHES)
+    want, st_cpu, t_cpu = run("cpu")
+    dev_max = max((abs(float(got[k].identity) - float(e.identity))
+                   for k, e in want.items() if k in got), default=0.0)
+    emit({"phase": "redo", "l2_entry_cap": 128,
+          "queries_redone": st["redone_queries"],
+          "fallback_frags": st["fallback_frags"],
+          "fallback_frags_cpu": st_cpu["fallback_frags"],
+          "rows": len(got), "max_ani_diff_vs_cpu": dev_max,
+          "launches": launches, "t_card_s": t_card, "t_cpu_s": t_cpu})
+    if not st["fallback_frags"] or st["redone_queries"] != 2:
+        raise AssertionError("redo: no query genome was redone")
+    if set(got) != set(want) or len(got) != 4:
+        raise AssertionError(f"redo: rows {sorted(got)} vs {sorted(want)}")
+    for k, e in want.items():
+        if (got[k].count_seq, got[k].total_query_fragments) != \
+                (e.count_seq, e.total_query_fragments):
+            raise AssertionError(f"redo: counts differ at {k}")
+    if dev_max > 1e-3:
+        raise AssertionError(f"redo: ANI off the CPU run's by {dev_max}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"redo: kernels not launched: {missing}")
 
 
 # ---------------------------------------------------------------------------
@@ -622,8 +730,9 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": time.time() - t0, "built": built})
 
-    run_golden(np)
+    golden_dir = run_golden(np)
     launches, paths, batches = run_main_path(torch, np, N_GENOMES, GENOME_BP)
+    run_redo(torch, golden_dir)
     kernels = check_kernels(torch, np, paths, batches, launches)
 
     table = []

@@ -36,8 +36,8 @@ class Parameters:
     out_file_name: str = ""
     matrix_output: bool = False
 
-    # capacity caps of the fixed-width buffers; a real fragment that
-    # overflows one raises (the exact redo is not ported yet)
+    # capacity caps of the fixed-width buffers; a query genome that owns a
+    # fragment over one is redone exactly with caps sized to its data
     frag_batch: int = 2048               # fragments mapped per batch
     sketch_cap: Optional[int] = None     # max unique minimizers per fragment
     hits_cap: int = 4096                 # max L1 seed hits per fragment

@@ -85,16 +85,19 @@ def _build(cls, params, ref_files, device, cap: int):
         rows = torch.as_tensor(np.concatenate(pend_rows), device=device)
         sid = np.concatenate(pend_sid)
         as_t = lambda a: torch.as_tensor(np.concatenate(a), device=device)
-        emit, h, wp = winnow.winnow_rows(rows, as_t(pend_sid),
-                                         as_t(pend_base), as_t(pend_len),
-                                         k, w)
+        base = as_t(pend_base)
+        emit, h = winnow.winnow_rows(rows, as_t(pend_sid), base,
+                                     as_t(pend_len), k, w)
+        wp = winnow.positions(base, _SEG, w)
         per = _SEG // _ROW
         e2 = emit.reshape(-1, _ROW)
         cnt = e2.sum(dim=1)
+        # the hashes are int32 words; they widen to int64 u32 values only
+        # after compaction (~2/(w+1) of the positions)
         hc, wc = compact.compact_rows(
-            e2, [(h.reshape(-1, _ROW), UMAX), (wp.reshape(-1, _ROW), PINF)],
+            e2, [(h.reshape(-1, _ROW), -1), (wp.reshape(-1, _ROW), PINF)],
             width=cap)
-        pieces.append((hc, wc, cnt))
+        pieces.append((hc.to(torch.int64) & UMAX, wc, cnt))
         piece_sid.append(np.repeat(sid, per))
         overflow |= bool((cnt > cap).any())
         pend_rows.clear()

@@ -11,6 +11,7 @@ with a valid unit.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 from typing import Optional
@@ -234,9 +235,6 @@ class Mapper:
                                             unit_factor, unit_chunk,
                                             index=index)
         dev = index.device
-        k = params.kmer_size
-        s_max = max(params.sketch_cap, 1)
-        lut = lambda a: torch.as_tensor(a.astype(np.int64), device=dev)
         M = index.n_entries
         # device builds arrive padded with >= 2048 sentinels past the true
         # count; unpadded arrays get the JAX package's padding (>= one L2
@@ -266,10 +264,27 @@ class Mapper:
         self.tables = IndexTables(
             occ_hash=occ_hash, occ_keys=occ_keys, mi_hash=mi_hash,
             mi_sid=mi_sid, mi_wpos=mi_wpos, mi_prev=prev, mi_nxt=nxt,
-            n_occ=M,
-            min_hits=lut(stats.min_hits_lut(k, params.percentage_identity,
-                                            s_max)),
-            gate=lut(gate_lut_np(k, params.percentage_identity, s_max)))
+            n_occ=M, **self._luts(params.sketch_cap))
+
+    def _luts(self, sketch_cap: int) -> dict:
+        """The min-hits and identity-gate LUTs over sketch sizes 0..cap."""
+        k, pct = self.params.kmer_size, self.params.percentage_identity
+        s_max = max(sketch_cap, 1)
+        lut = lambda a: torch.as_tensor(a.astype(np.int64),
+                                        device=self.index.device)
+        return dict(min_hits=lut(stats.min_hits_lut(k, pct, s_max)),
+                    gate=lut(gate_lut_np(k, pct, s_max)))
+
+    def with_caps(self, **caps) -> "Mapper":
+        """This mapper over the same index tables with other capacity caps
+        (``MapperConfig`` fields: sketch_cap, hits_cap, cand_cap,
+        l2_entry_cap, unit_cap); the LUTs follow sketch_cap."""
+        other = copy.copy(self)
+        other.cfg = dataclasses.replace(self.cfg, **caps)
+        if other.cfg.sketch_cap != self.cfg.sketch_cap:
+            other.tables = dataclasses.replace(
+                self.tables, **self._luts(other.cfg.sketch_cap))
+        return other
 
     def map_batch(self, frags: torch.Tensor, qno_row=None, qsid_row=None,
                   row_valid=None) -> dict:

@@ -11,9 +11,9 @@ and ``_searchsorted_pairs``).
   min-hits partner test, in-place chain merge, K2 for the group leaders.
 
 u32 values cross K2 and K3 as int32 words holding their bit patterns
-(UMAX pads are -1): the sketch's hashes from where they are made until
-``qh``, which goes back to int64 u32 values, and the 32-bit hit keys from
-the index's ``occ_keys`` on.  A field read from an int32 word masks after
+(UMAX pads are -1): the sketch's hashes from the K1 winnow until ``qh``,
+which goes back to int64 u32 values, and the 32-bit hit keys from the
+index's ``occ_keys`` on.  A field read from an int32 word masks after
 the arithmetic shift, since bit 31 may be set.
 """
 
@@ -40,13 +40,13 @@ def sketch_fragments(frags: torch.Tensor, k: int, w: int, scap: int):
     halo = w - 1
     rows = torch.cat([torch.zeros((F, halo), dtype=torch.uint8, device=dev),
                       frags], dim=1)
-    emit, h, _ = winnow.winnow_rows(
+    emit, h = winnow.winnow_rows(
         rows, torch.arange(F, dtype=torch.int32, device=dev),
         torch.zeros(F, dtype=torch.int32, device=dev),
         torch.full((F,), L, dtype=torch.int32, device=dev), k, w)
     n = h.shape[-1]
     n_emit = emit.sum(dim=-1)
-    keys0 = torch.where(emit, u32_as_i32(h), -1)
+    keys0 = torch.where(emit, h, -1)
     # emitted minimizers are sparse (~2/(w+1) of positions): compact them
     # into a narrow row first and sort only that; the narrow width bounds
     # the emit count, and an overflow joins the sketch overflow

@@ -7,9 +7,13 @@ genomes closed as the loop passes them -> one readout of the (Gq, Gr)
 matrices -> TSV and optional phylip matrix.  Reference semantics:
 src/cgi/core_genome_identity.cpp:27-167.
 
-A real fragment that overflows a capacity cap (sketch, L1, L2 or unit)
-raises ``CapOverflowError`` naming the cap and the observed value; the
-exact redo of such fragments is not ported yet.
+A query genome that owns a fragment over a capacity cap (sketch, L1, L2
+or unit) is redone exactly once the stream has passed: the device CGI
+leaves the overflowed fragments out, and the genome's whole row of the
+(Gq, Gr) matrices is replaced by the host fold of its fragments mapped
+again with caps sized to what the counters observed
+(``_redo_query_exact``).  ``CapOverflowError`` is left only for a
+data-sized cap past a kernel's width limit.
 """
 
 from __future__ import annotations
@@ -24,13 +28,27 @@ import torch
 from fastani_tpu_torch.config import Parameters, scale_caps
 from fastani_tpu_torch.index.sketch import ReferenceIndex
 from fastani_tpu_torch.io import fasta
-from fastani_tpu_torch.models import ani, device_cgi, jitmap, output
-from fastani_tpu_torch.ops import hashing
+from fastani_tpu_torch.models import ani, device_cgi, jitmap, l2walk, output
+from fastani_tpu_torch.ops import hashing, sort
 from fastani_tpu_torch.ops.cuda import resolve_device
+from fastani_tpu_torch.ops.stats import identities_for
 
 
 class CapOverflowError(RuntimeError):
-    """A real fragment overflowed a capacity cap of the fixed-width path."""
+    """A data-sized cap of the exact redo passes a kernel's width limit."""
+
+
+# cap -> (the counter that sizes it, rounding step, largest width the
+# kernels take or None, what sets that limit).  The L2 event records hold
+# ranks in 10 bits; K3 sorts rows of up to sort.MAX_KEYS hit keys
+_CAPS = {
+    "sketch_cap": ("max_s", 64, l2walk.MAX_SCAP, "the L2 event record"),
+    "hits_cap": ("max_hits", 1024, sort.MAX_KEYS, "the K3 row sort"),
+    "cand_cap": ("max_groups", 64, None, None),
+    "l2_entry_cap": ("max_span", 128, l2walk.MAX_NCAP,
+                     "the L2 event record"),
+    "unit_cap": ("n_units", 1024, None, None),
+}
 
 
 def load_query_fragments(path: str, params: Parameters) -> np.ndarray:
@@ -121,22 +139,67 @@ def cgi_stream_schedule(stream: FragmentStream, B: int, n_query_genomes: int):
     return starts, fins, tail, n_slots
 
 
-def _overflow_message(cfg, c: Dict[str, int], n_real: int) -> str:
-    caps = []
-    if c["sk_overflow"]:
-        caps.append(f"sketch_cap={cfg.sketch_cap} (max unique minimizers "
-                    f"per fragment {c['max_s']})")
-    if c["l1_overflow"]:
-        caps.append(f"hits_cap={cfg.hits_cap} (max L1 hits {c['max_hits']}) "
-                    f"or cand_cap={cfg.cand_cap} (max candidate regions "
-                    f"{c['max_groups']})")
-    if c["l2_overflow"]:
-        caps.append(f"l2_entry_cap={cfg.l2_entry_cap} (max entry span "
-                    f"{c['max_span']})")
-    if c["unit_overflow"]:
-        caps.append(f"unit_cap={cfg.unit_cap} (units {c['n_units']})")
-    return (f"{n_real} real fragment(s) overflowed: " + "; ".join(caps)
-            + " — the exact redo of overflowed fragments is not ported")
+def _grown_caps(cfg, c: Dict[str, int]) -> Dict[str, int]:
+    """Caps that hold what the counters ``c`` of an overflowing batch
+    observed, each rounded up to its step.  Raises ``CapOverflowError``
+    where a fragment needs more than a kernel's width limit."""
+    caps = {}
+    for cap, (counter, step, limit, holder) in _CAPS.items():
+        cur, need = getattr(cfg, cap), c[counter]
+        if cap == "sketch_cap" and c["sk_overflow"] and need <= cur:
+            # the unique count fits: the emit row (>= 4 x sketch_cap wide,
+            # mapping.sketch_fragments) overflowed, so widen both
+            need = 2 * cur
+        if need <= cur:
+            continue
+        if limit is not None and need > limit:
+            raise CapOverflowError(
+                f"{cap}: a fragment needs {need} ({counter} "
+                f"{c[counter]}), past the limit of {limit} of {holder}")
+        caps[cap] = -(-need // step) * step
+        if limit is not None:
+            caps[cap] = min(caps[cap], limit)
+    return caps
+
+
+def _redo_query_exact(qno: int, stream: FragmentStream,
+                      params: Parameters, mapper: "jitmap.Mapper",
+                      genome_of_seq: np.ndarray):
+    """Exact (counts, sums) of one query genome a fragment of which
+    overflowed a cap (the JAX package's ``_redo_query_exact``).  The 2-way
+    dedupe couples a genome's fragments, so all of them are mapped again,
+    on the index's device, batch by batch; a batch that overflows is mapped
+    again with caps grown to its counters until none overflows.  The rows
+    the map step marks valid are folded on the host (``ani.
+    compute_cgi_arrays``).  Returns ({ref genome: (count, sum)}, the mapper
+    with the caps that sufficed)."""
+    frags = stream.get_query(qno)
+    dev = mapper.index.device
+    B = params.frag_batch
+    rows = []
+    for b0 in range(0, len(frags), B):
+        f = torch.as_tensor(frags[b0:b0 + B], device=dev)
+        gid = torch.arange(b0, b0 + len(f), dtype=torch.int32, device=dev)
+        while True:
+            out = mapper.map_batch(f, qsid_row=gid)
+            c = dict(zip(jitmap.COUNT_NAMES, out["counts"].tolist()))
+            if not any(c[key] for key in jitmap.COUNT_NAMES[1:5]):
+                break
+            caps = _grown_caps(mapper.cfg, c)
+            if all(getattr(mapper.cfg, k) == v for k, v in caps.items()):
+                raise CapOverflowError(f"a batch overflows at caps that "
+                                       f"hold its counters: {c}")
+            mapper = mapper.with_caps(**caps)
+        rows.append(out["packed"][:, :c["n_valid"]].cpu().numpy())
+    _, _, qsid, sid, shared, sketch, pos = np.concatenate(rows, axis=1)
+    ident, upper = identities_for(shared, sketch, params.kmer_size)
+    keep = upper >= np.float32(params.percentage_identity)
+    res, _ = ani.compute_cgi_arrays(
+        sid[keep], qsid[keep], pos[keep], ident[keep], genome_of_seq,
+        params.frag_len, qno, stream.total_fragments(qno), want_visual=False)
+    return {r.ref_genome: (r.count_seq,
+                           np.float32(r.identity) * np.float32(r.count_seq))
+            for r in res}, mapper
 
 
 def map_queries_cgi_device(stream: FragmentStream, index: ReferenceIndex,
@@ -144,14 +207,16 @@ def map_queries_cgi_device(stream: FragmentStream, index: ReferenceIndex,
                            n_query_genomes: int, n_ref_genomes: int,
                            stats: Optional[dict] = None):
     """Map every query fragment and fold the rows into per-genome-pair
-    (counts, sums) on the device; one plain loop over batches.  Returns
-    host (counts (Gq, Gr) int32, sums (Gq, Gr) float32)."""
+    (counts, sums) on the device; one plain loop over batches, then the
+    exact redo of each query genome that owns an overflowed fragment.
+    Returns host (counts (Gq, Gr) int32, sums (Gq, Gr) float32)."""
     dev = index.device
     B = params.frag_batch
     starts, fins, tail, n_slots = cgi_stream_schedule(stream, B,
                                                       n_query_genomes)
     cgi = device_cgi.StreamingCGI(index, params, n_query_genomes,
                                   n_ref_genomes, n_slots=n_slots, frag_cap=B)
+    redo = set()               # query genomes that own an overflowed fragment
     for i, b0 in enumerate(starts):
         if fins[i]:
             cgi.finalize_list(fins[i])
@@ -165,17 +230,30 @@ def map_queries_cgi_device(stream: FragmentStream, index: ReferenceIndex,
             stats["batches"] = stats.get("batches", 0) + 1
         n_fb = 0
         if any(counts[key] for key in jitmap.COUNT_NAMES[1:5]):
-            n_fb = int(out["fallback_mask"].sum())
-            if n_fb:
-                raise CapOverflowError(_overflow_message(mapper.cfg, counts,
-                                                         n_fb))
+            fb_rows = np.nonzero(out["fallback_mask"].cpu().numpy())[0]
+            n_fb = len(fb_rows)
+            redo.update(qno_row[fb_rows].tolist())
         if stats is not None:
             stats["fallback_frags"] = stats.get("fallback_frags", 0) + n_fb
         cgi.update(out["packed"], counts["n_valid"])
         stream.evict_up_to(stream.qno_of_row(b0))
     if tail:
         cgi.finalize_list(tail)
-    return cgi.result()
+    counts, sums = cgi.result()
+    # the device CGI left the overflowed fragments out; each genome that
+    # owns one gets its row replaced by the exact redo's
+    genome_of_seq = index.genome_of_seq()
+    for qno in sorted(redo):
+        row, mapper = _redo_query_exact(qno, stream, params, mapper,
+                                        genome_of_seq)
+        counts[qno, :] = 0
+        sums[qno, :] = 0.0
+        for g, (c, sm) in row.items():
+            counts[qno, g] = c
+            sums[qno, g] = sm
+    if stats is not None:
+        stats["redone_queries"] = len(redo)
+    return counts, sums
 
 
 def _sync(dev: torch.device) -> None:

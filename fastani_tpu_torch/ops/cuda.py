@@ -50,8 +50,9 @@ _I = ctypes.c_int
 
 # C signatures: every function returns int (a cudaError_t)
 _SIGNATURES = {
-    "winnow": {"fa_winnow_rows": [_P, _P, _P, _P, _I, _I, _I, _I,
-                                  _P, _P, _P, _P, _P, _P]},
+    "winnow": {"fa_winnow_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _P, _P, _P, _P, _P, _P],
+               "fa_winnow_smem": [_I, _I, _I]},
     "compact": {"fa_compact_rows": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                                     _P, _P, _P]},
     "sort": {"fa_sort_rows_u32": [_P, _P, _I, _I, _P],

@@ -204,3 +204,29 @@ def min_hits_lut(k: int, perc_identity: float, s_max: int) -> np.ndarray:
     for s in range(1, s_max + 1):
         out[s] = max(1, estimate_minimum_hits_relaxed(s, k, perc_identity))
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def identity_row(s: int, k: int):
+    """(identity[c], upper[c]) float32 for c = 0..s: row s of
+    ``identity_tables`` alone (the JAX package's ``identity_lut(s, k)``)."""
+    return _identity_entries(k, np.full(s + 1, s, np.int64),
+                             np.arange(s + 1, dtype=np.int64))
+
+
+def identities_for(shared: np.ndarray, sketch_sizes: np.ndarray, k: int):
+    """Per-row (identity, upper bound) float32 of (shared count, sketch
+    size) pairs (computeMap.hpp:375-381); rows with s <= 0 stay zero."""
+    shared = np.asarray(shared)
+    sketch_sizes = np.asarray(sketch_sizes)
+    ident = np.zeros(shared.shape, np.float32)
+    upper = np.zeros(shared.shape, np.float32)
+    for s in np.unique(sketch_sizes).tolist():
+        if s <= 0:
+            continue
+        lut_i, lut_u = identity_row(int(s), k)
+        sel = sketch_sizes == s
+        c = np.clip(shared[sel], 0, int(s))
+        ident[sel] = lut_i[c]
+        upper[sel] = lut_u[c]
+    return ident, upper

@@ -4,17 +4,20 @@ one process on one card.
 
     python3 scripts/torch_kernel_versions.py KERNEL OTHER_CU [OTHER_CU ...]
 
-KERNEL is ``walk`` (K5), ``sort_kv`` (K4), ``sort`` (K3) or ``compact``
-(K2); each OTHER_CU is a source with the same C entry points as
-``fastani_tpu_torch/csrc/`` has for it, built with the flags of
-``ops/cuda.py`` into ``.smokework/``.  The inputs: for ``walk``,
-``chip_smoke.real_streams`` (U 512 and 4096, scap 320); for ``sort_kv``,
-``chip_smoke.kv_inputs``; for ``sort`` and ``compact``, what each of the
-kernel's call sites gets on the main path (``chip_smoke.capture_sites``
-on bench.py's mid genomes).  Every version is compared with the plain version and timed
+KERNEL is ``walk`` (K5), ``sort_kv`` (K4), ``sort`` (K3), ``compact``
+(K2) or ``winnow`` (K1); each OTHER_CU is a source with the same C entry
+points as ``fastani_tpu_torch/csrc/`` has for it (for ``winnow`` also the
+``fa_winnow_rows`` entry point of the row-per-block K1, whose int64 hashes
+are compared as int32 words), built with the flags of ``ops/cuda.py`` into
+``.smokework/``.  The inputs: for ``walk``, ``chip_smoke.real_streams`` (U
+512 and 4096, scap 320); for ``sort_kv``, ``chip_smoke.kv_inputs``; for
+``sort``, ``compact`` and ``winnow``, what each of the kernel's call sites
+gets on the main path (``chip_smoke.capture_sites`` on bench.py's mid
+genomes).  Every version is compared with the plain version and timed
 against this one in turns (other, this, this, other; CUDA events around a
-CUDA graph of 20 calls, after a warm-up).  Prints one JSON line with the
-card's name and power limit, each version's max abs error and times;
+CUDA graph of 20 calls, after a warm-up); ``winnow`` also times this
+source at the tile widths of ``WINNOW_TILES``.  Prints one JSON line with
+the card's name and power limit, each version's max abs error and times;
 exits 1 if another version differs from the plain version (raises at once
 if this one does).  Needs a CUDA device.
 """
@@ -30,11 +33,54 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
+# the row-per-block K1's entry point: (rows, ctg, base, tlen, R, W, k, w,
+# emit, int64 hash, 3 x (R,) int32 scratch, stream)
+_WINNOW_ROWS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+    [ctypes.c_void_p] * 6
+# tile widths at which ``winnow`` also times this source
+WINNOW_TILES = (512, 1024, 2048, 4096)
+
+
+def winnow_run(torch, args):
+    """(run, as_words) of K1 on ``args`` through whichever library
+    ``cuda.lib("winnow")`` holds: the wrapper for this source's entry
+    point, a direct call for the row-per-block one; ``as_words`` turns the
+    outputs into the plain version's (emit bool, int32 hash words)."""
+    from fastani_tpu_torch.ops import cuda as kc
+    from fastani_tpu_torch.ops import winnow
+    from fastani_tpu_torch.ops.xputils import u32_as_i32
+
+    rows, ctg, base, tl, k, w = args
+
+    def run():
+        lib = kc.lib("winnow")
+        if hasattr(lib, "fa_winnow_tiles"):
+            return winnow.winnow_rows(*args)
+        R, W = rows.shape
+        seg = W - (w - 1) - (k - 1)
+        emit = torch.empty((R, seg), dtype=torch.uint8, device=rows.device)
+        h = torch.empty((R, seg), dtype=torch.int64, device=rows.device)
+        scratch = torch.empty((3, R), dtype=torch.int32, device=rows.device)
+        kc.check(lib.fa_winnow_rows(
+            rows.data_ptr(), ctg.data_ptr(), base.data_ptr(), tl.data_ptr(),
+            R, W, k, w, emit.data_ptr(), h.data_ptr(), scratch[0].data_ptr(),
+            scratch[1].data_ptr(), scratch[2].data_ptr(), kc.stream()),
+            "winnow")
+        return emit, h
+
+    def as_words(out):
+        emit, h = out
+        return [emit.bool(), h if h.dtype == torch.int32 else u32_as_i32(h)]
+
+    return run, as_words
+
 
 def cases(torch, np, kernel, chip_smoke):
-    """[(label, run, plain outputs)] for ``kernel``."""
+    """[(label, run, plain outputs, as_words[, winnow's arguments])] for
+    ``kernel``: ``as_words`` turns run's outputs into the plain version's
+    words for the comparison (outside the timed calls)."""
     from fastani_tpu_torch.models import l2walk
-    from fastani_tpu_torch.ops import compact, sort
+    from fastani_tpu_torch.ops import compact, sort, winnow
 
     if kernel == "walk":
         streams, scap = chip_smoke.real_streams(torch, np,
@@ -42,13 +88,13 @@ def cases(torch, np, kernel, chip_smoke):
         return [(f"U {U} (T {ev['dn'].shape[1]}, scap {scap})",
                  lambda ev=ev, s_u=s_u, n_ev=n_ev:
                  l2walk.walk(ev, s_u, n_ev, scap),
-                 l2walk.walk_plain(ev, s_u, n_ev, scap))
+                 l2walk.walk_plain(ev, s_u, n_ev, scap), list)
                 for U, (ev, s_u, n_ev) in streams.items()]
     if kernel == "sort_kv":
         k, p = chip_smoke.kv_inputs(torch, torch.device("cuda"))
         return [(f"L2 events {list(k.shape)}",
                  lambda: sort.sort_rows_u32_kv(k, p),
-                 sort.sort_rows_u32_kv_plain(k, p))]
+                 sort.sort_rows_u32_kv_plain(k, p), list)]
     wd = chip_smoke.WORK / "versions"
     wd.mkdir(parents=True, exist_ok=True)
     paths = chip_smoke.build_workload(np, wd, chip_smoke.N_GENOMES,
@@ -60,18 +106,23 @@ def cases(torch, np, kernel, chip_smoke):
         if k != kernel:
             continue
         a, kw = v["args"], v["kw"]
-        if kernel == "sort":
+        if kernel == "winnow":
+            run, as_words = winnow_run(torch, a)
+            out.append((f"{site} {list(a[0].shape)}", run,
+                        winnow.winnow_rows_plain(*a), as_words, a))
+        elif kernel == "sort":
             x = a[0]
             out.append((f"{site} {list(x.shape)}",
                         lambda x=x: [sort.sort_rows_u32(x)],
-                        [sort.sort_rows_u32_plain(x)]))
+                        [sort.sort_rows_u32_plain(x)], list))
         else:
             flags, pays = a[0], a[1]
             width = kw.get("width", a[2] if len(a) > 2 else flags.shape[1])
             out.append((f"{site} {list(flags.shape)} x{len(pays)} -> {width}",
                         lambda f=flags, p=pays, w=width:
                         compact.compact_rows(f, p, w),
-                        compact.compact_rows_plain(flags, pays, width)))
+                        compact.compact_rows_plain(flags, pays, width),
+                        list))
     return out
 
 
@@ -80,7 +131,7 @@ def main(argv) -> int:
     import torch
 
     if len(argv) < 3 or argv[1] not in ("walk", "sort_kv", "sort",
-                                          "compact"):
+                                          "compact", "winnow"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -103,7 +154,10 @@ def main(argv) -> int:
         ptxas[str(src)] = [ln for ln in (built.stdout + built.stderr).split(
             "\n") if "registers" in ln]
         lib = ctypes.CDLL(str(so))
-        for fn, argtypes in kc._SIGNATURES[source].items():
+        signatures = kc._SIGNATURES[source]
+        if source == "winnow" and not hasattr(lib, "fa_winnow_tiles"):
+            signatures = {"fa_winnow_rows": _WINNOW_ROWS}
+        for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         libs[str(src)] = lib
@@ -113,15 +167,16 @@ def main(argv) -> int:
         # the wrappers launch whatever library cuda.lib(source) returns
         kc._LIBS[source] = lib
 
-    rows = []
-    for label, run, want in cases(torch, np, kernel, chip_smoke):
+    rows, tiles = [], []
+    for label, run, want, as_words, *args in cases(torch, np, kernel,
+                                                   chip_smoke):
         for src, other in libs.items():
             times, errs = {"other": [], "this": []}, {}
             for name, lib in (("other", other), ("this", this),
                               ("this", this), ("other", other)):
                 use(lib)
                 errs[name] = max(errs.get(name, 0.0), chip_smoke.max_abs_err(
-                    torch, list(run()), list(want)))
+                    torch, as_words(run()), list(want)))
                 times[name].append(chip_smoke.time_ms(torch, run, 20,
                                                       graph=True))
             rows.append({"case": label, "other": src,
@@ -130,10 +185,27 @@ def main(argv) -> int:
             if errs["this"] != 0:
                 raise AssertionError(f"{kernel} differs from its plain "
                                      f"version at {label}")
+        if kernel == "winnow":
+            # this source at other tile widths (ops/winnow.tile_geometry)
+            use(this)
+            from fastani_tpu_torch.ops import winnow
+            a = args[0]
+            for tile_max in WINNOW_TILES:
+                fn = lambda t=tile_max: winnow.winnow_rows(*a, tile_max=t)
+                if chip_smoke.max_abs_err(torch, list(fn()), list(want)):
+                    raise AssertionError(f"winnow at tile_max {tile_max} "
+                                         f"differs at {label}")
+                tiles.append({"case": label, "tile_max": tile_max,
+                              "tile": winnow.tile_geometry(
+                                  want[1].shape[1], tile_max)[0],
+                              "ms": [chip_smoke.time_ms(torch, fn, 20,
+                                                        graph=True)
+                                     for _ in range(2)]})
     use(this)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "nvidia_smi": chip_smoke.nvidia_smi(),
-                      "kernel": kernel, "ptxas": ptxas, "versions": rows}))
+                      "kernel": kernel, "ptxas": ptxas, "versions": rows,
+                      "tiles": tiles}))
     # a version that differs from the plain version is reported, then
     # fails the run
     return 1 if any(r["other_max_abs_err"] for r in rows) else 0

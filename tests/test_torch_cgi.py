@@ -1,14 +1,20 @@
 """The port's device CGI fold (update_tab, finalize_rows) against the JAX
 package's on the same packed batches: counts equal, sums within rtol 1e-6
-(float32 sums taken in another order)."""
+(float32 sums taken in another order); its host fold
+(``compute_cgi_arrays``) and ``identities_for`` bit-equal to the JAX
+package's."""
 
 import numpy as np
+import pytest
 import torch
 
 import jax.numpy as jnp
 
+from fastani_tpu.models import ani as jani
 from fastani_tpu.models import device_cgi as jcgi
-from fastani_tpu_torch.models import device_cgi
+from fastani_tpu.ops import stats as jstats
+from fastani_tpu_torch.models import ani, device_cgi
+from fastani_tpu_torch.ops import stats
 
 # one intra-op thread: the suite runs several xdist workers per core, and
 # torch's thread pool on top of them stalls every small CPU op
@@ -74,3 +80,56 @@ def test_update_and_finalize_match_jax():
     np.testing.assert_array_equal(acc_ct.numpy(), np.asarray(acc_cj))
     assert acc_ct.sum() > 20
     np.testing.assert_allclose(acc_st.numpy(), np.asarray(acc_sj), rtol=1e-6)
+
+
+def _mapping_rows(rng, n, k):
+    """n mapping rows of one query genome: 6 reference contigs in 3 genomes,
+    30 fragments, start positions on few bins (frag_len 3000: bins of 2980)
+    with ties, identities from few (shared, sketch) pairs, so that they tie
+    too."""
+    sketch = rng.choice([150, 201, 240], n)
+    shared = np.minimum(rng.integers(60, 200, n) // 20 * 20, sketch)
+    ident, upper = stats.identities_for(shared, sketch, k)
+    return dict(ref_sid=rng.integers(0, 6, n), qsid=rng.integers(0, 30, n),
+                ref_start=rng.integers(0, 8, n) * 1490 + rng.integers(0, 3, n),
+                ident=ident, shared=shared, sketch=sketch, upper=upper)
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_compute_cgi_arrays_matches_jax(seed):
+    """Rows (genome, count, f32 mean: the sequential fold) and the .visual
+    list equal, bit for bit."""
+    rng = np.random.default_rng(seed)
+    m = _mapping_rows(rng, 400, 16)
+    gos = np.array([0, 0, 1, 1, 1, 2], np.int32)
+    args = (m["ref_sid"], m["qsid"], m["ref_start"], m["ident"], gos, 3000,
+            5, 30)
+    got_rows, got_vis = ani.compute_cgi_arrays(*args)
+    want_rows, want_vis = jani.compute_cgi_arrays(*args)
+    assert len(got_rows) == 3 and len(got_vis) > 20
+    as_t = lambda r: (r.qry_genome, r.ref_genome, r.count_seq,
+                      r.total_query_fragments,
+                      np.float32(r.identity).view(np.int32))
+    assert [as_t(r) for r in got_rows] == [as_t(r) for r in want_rows]
+    as_v = lambda v: (v.genome_id, v.ref_seq_id, v.query_seq_id, v.ref_start,
+                      v.query_start, np.float32(v.identity).view(np.int32))
+    assert [as_v(v) for v in got_vis] == [as_v(v) for v in want_vis]
+    rows, vis = ani.compute_cgi_arrays(*args, want_visual=False)
+    assert vis == [] and [as_t(r) for r in rows] == [as_t(r) for r in
+                                                     want_rows]
+
+
+def test_identities_for_matches_jax():
+    """Identity and upper bound per (shared, sketch) row, bit-equal,
+    including shared counts above the sketch size (clipped) and s = 0."""
+    rng = np.random.default_rng(8)
+    m = _mapping_rows(rng, 300, 16)
+    shared, sketch = m["shared"].copy(), m["sketch"].copy()
+    shared[:5] = sketch[:5] + 3
+    sketch[5:8] = 0
+    for k in (16, 12):
+        got = stats.identities_for(shared, sketch, k)
+        want = jstats.identities_for(shared, sketch, k)
+        for g, w in zip(got, want):
+            assert g.dtype == np.float32
+            np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32))

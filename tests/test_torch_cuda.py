@@ -33,13 +33,35 @@ def _eq(a, b):
         assert torch.equal(x.cpu().to(torch.int64), y.cpu().to(torch.int64))
 
 
-@pytest.mark.parametrize("seg", [200, 17 * 1024])
-def test_winnow_kernel_matches_plain(cuda_device, seg):
-    k, w = 16, 24
-    rng = np.random.default_rng(seg)
+def _palindromic(n, ends):
+    """ATAT... bytes: every even-length k-mer is its own reverse complement,
+    so none is valid; ``ends`` of the given positions with C.  A contig
+    ending in such a C has one valid k-mer start, its last (len - k)."""
+    seq = np.frombuffer(b"AT" * (n // 2 + 1), np.uint8)[:n].copy()
+    seq[list(ends)] = ord("C")
+    return seq
+
+
+@pytest.mark.parametrize("k,w", [(16, 24), (12, 24), (16, 80)])
+@pytest.mark.parametrize("seg,tile_max", [(200, 2048), (17 * 1024, 2048),
+                                          (17 * 1024, 64), (3000, 1024)])
+def test_winnow_kernel_matches_plain(cuda_device, seg, tile_max, k, w):
+    """Bit-equal to winnow_rows_plain: lowercase and N bytes, contigs with
+    no valid k-mer (all N, all ATAT), rows and tiles whose only event is
+    their first position (a contig's one valid k-mer start scored first
+    in its row or tile, after earlier events of the contig or none, so the
+    carry runs through the chain pass), long rows split into tiles,
+    contigs shorter than a row."""
+    rng = np.random.default_rng(seg + k + w + tile_max)
     alpha = np.frombuffer(b"ACGTacgtN", np.uint8)
     contigs = [alpha[rng.integers(0, 9, n)] for n in (40_000, 30, 5000)]
     contigs[0][1000:9000] = ord("N")
+    contigs += [np.full(3000, ord("N"), np.uint8), _palindromic(3000, [])]
+    tile, n_tiles = winnow.tile_geometry(seg, tile_max)
+    lone = [seg, 2 * seg + (tile if n_tiles > 1 else 0)]
+    lone_first = len(contigs)
+    contigs += [_palindromic(lone[0] + k, [seg // 2, lone[0] + k - 1]),
+                _palindromic(lone[1] + k, [lone[1] + k - 1])]
     parts = [device_build.segment_rows(c, k, w, seg) for c in contigs]
     cat = lambda xs: torch.from_numpy(np.concatenate(xs)).to(cuda_device)
     rows = cat([p[0] for p in parts])
@@ -47,8 +69,12 @@ def test_winnow_kernel_matches_plain(cuda_device, seg):
     ctg = cat([np.full(len(p[0]), i, np.int32) for i, p in enumerate(parts)])
     tl = cat([np.full(len(p[0]), len(c), np.int32)
               for p, c in zip(parts, contigs)])
-    emit, h, _ = winnow.winnow_rows(rows, ctg, base, tl, k, w)
+    emit, h = winnow.winnow_rows(rows, ctg, base, tl, k, w, tile_max)
+    assert emit.dtype == torch.bool and h.dtype == torch.int32
     _eq([emit, h], winnow.winnow_rows_plain(rows, ctg, base, tl, k, w))
+    for j, g in enumerate(lone):
+        e = emit[ctg == lone_first + j].reshape(-1).cpu().numpy()
+        assert e[g] and (j == 0 or np.nonzero(e)[0].tolist() == [g])
 
 
 def test_compact_kernel_matches_plain(cuda_device):
@@ -188,7 +214,7 @@ def test_walk_kernel_matches_plain(cuda_device, tmp_path, scap, frag_len,
     assert int((got[0] > 0).sum()) > 10
 
 
-def test_run_fast_card_matches_cpu(cuda_device, tmp_path):
+def _run_fast_card_and_cpu(tmp_path, **caps):
     rng = np.random.default_rng(9)
     acgt = np.frombuffer(b"ACGT", np.uint8)
     base = acgt[rng.integers(0, 4, 200_000)]
@@ -200,13 +226,29 @@ def test_run_fast_card_matches_cpu(cuda_device, tmp_path):
         p = tmp_path / f"g{i}.fa"
         p.write_bytes(b">g%d\n" % i + g.tobytes() + b"\n")
         paths.append(str(p))
+    stats = {"cpu": {}, "cuda": {}}
     run = lambda dev: pipeline.run_fast(
-        Parameters(query_sequences=paths, ref_sequences=paths), device=dev,
-        log=lambda m: None)
+        Parameters(query_sequences=paths, ref_sequences=paths, **caps),
+        device=dev, log=lambda m: None, stats=stats[dev.split(":")[0]])
     key = lambda e: (e.qry_genome, e.ref_genome)
     want = {key(e): e for e in run("cpu")}
-    got = {key(e): e for e in run(cuda_device)}
+    got = {key(e): e for e in run("cuda")}
     assert set(got) == set(want) and len(got) == 9
     for k, e in want.items():
         assert got[k].count_seq == e.count_seq, k
         assert abs(float(got[k].identity) - float(e.identity)) <= 1e-3, k
+    return stats
+
+
+def test_run_fast_redo_card_matches_cpu(cuda_device, tmp_path):
+    """l2_entry_cap 128: every mapped fragment overflows L2 and each query
+    genome is redone on the card, as on the CPU."""
+    stats = _run_fast_card_and_cpu(tmp_path, l2_entry_cap=128)
+    for st in stats.values():
+        assert st["fallback_frags"] > 0 and st["redone_queries"] == 3
+    assert stats["cpu"]["fallback_frags"] == stats["cuda"]["fallback_frags"]
+
+
+def test_run_fast_card_matches_cpu(cuda_device, tmp_path):
+    stats = _run_fast_card_and_cpu(tmp_path)
+    assert stats["cuda"]["fallback_frags"] == 0

@@ -92,19 +92,101 @@ def test_run_fast_cpu_matches_jax_run_fast(workdir):
     assert stats["fallback_frags"] == 0 and stats["batches"] == 2
 
 
-def test_cap_overflow_of_a_real_fragment_raises(workdir):
-    """A real fragment over a cap raises, naming the cap and the observed
-    value (the exact redo is not ported): sketch_cap 64 < ~240 minimizers."""
+def _by_pair(rows):
+    return {(e.qry_genome, e.ref_genome): e for e in rows}
+
+
+def test_run_fast_redo_matches_jax_run_fast(workdir, monkeypatch):
+    """l2_entry_cap 128 under the ~480 entries a clean mapping spans: every
+    mapped fragment overflows L2, and its query genome is redone exactly
+    (the JAX package's through its numpy fallback, the port's through its
+    own map step at grown caps)."""
+    from fastani_tpu.config import Parameters as JParams
+    from fastani_tpu.models import device_cgi as jcgi
+    from fastani_tpu.models import pipeline as jpipe
+
+    # the JAX redo writes into the readout arrays, which np.asarray of a
+    # JAX array on the CPU makes read-only: read them out as copies
+    monkeypatch.setattr(jcgi.StreamingCGI, "result", lambda self: (
+        np.array(self._counts), np.array(self._sums)))
+
+    q = [str(workdir / "base.fa")]
+    r = [str(workdir / "strainA.fa"), str(workdir / "strainB.fa")]
+    want = jpipe.run_fast(JParams(query_sequences=q, ref_sequences=r,
+                                  frag_batch=64, l2_entry_cap=128),
+                          log=lambda m: None)
+    stats = {}
+    got = pipeline.run_fast(Parameters(query_sequences=q, ref_sequences=r,
+                                       frag_batch=64, l2_entry_cap=128),
+                            device="cpu", log=lambda m: None, stats=stats)
+    want, got = _by_pair(want), _by_pair(got)
+    assert set(got) == set(want) and len(got) == 2
+    for k, e in want.items():
+        g = got[k]
+        assert (g.count_seq, g.total_query_fragments) == \
+            (e.count_seq, e.total_query_fragments), k
+        assert abs(float(g.identity) - float(e.identity)) <= 1e-3, k
+    assert stats["fallback_frags"] > 0 and stats["redone_queries"] == 1
+
+
+@pytest.mark.parametrize("caps", [dict(sketch_cap=64),
+                                  dict(l2_entry_cap=128, hits_cap=64)],
+                         ids=["sketch_cap64", "l2_entry_cap128-hits_cap64"])
+def test_map_queries_redo_matches_uncapped(workdir, caps):
+    """The stream with caps that real fragments overflow (so their genomes
+    are redone at grown caps) against the same call at caps that hold:
+    counts equal, sums within rtol 1e-6 (the device CGI's float32 sums and
+    the host fold's mean x count differ in the last bits)."""
     from fastani_tpu_torch.index.sketch import ReferenceIndex
     from fastani_tpu_torch.models import jitmap
 
-    params = Parameters(query_sequences=[str(workdir / "base.fa")],
-                        ref_sequences=[str(workdir / "strainA.fa")],
-                        sketch_cap=64).finalize()
-    index = ReferenceIndex.build_device(params, device="cpu")
-    stream = pipeline.FragmentStream(params.query_sequences, params)
-    with pytest.raises(pipeline.CapOverflowError,
-                       match=r"50 real fragment.*sketch_cap=64 \(max unique "
-                             r"minimizers per fragment 2\d\d\)"):
-        pipeline.map_queries_cgi_device(stream, index, params,
-                                        jitmap.Mapper(params, index), 1, 1)
+    q = [str(workdir / "multi.fa"), str(workdir / "base.fa")]
+    r = [str(workdir / "strainA.fa"), str(workdir / "strainB.fa")]
+
+    def run(**kw):
+        params = Parameters(query_sequences=q, ref_sequences=r,
+                            frag_batch=64, **kw).finalize()
+        index = ReferenceIndex.build_device(params, device="cpu")
+        stream = pipeline.FragmentStream(params.query_sequences, params)
+        stats = {}
+        out = pipeline.map_queries_cgi_device(
+            stream, index, params, jitmap.Mapper(params, index), 2, 2,
+            stats=stats)
+        return out, stats
+
+    (c0, s0), st0 = run()
+    (c1, s1), st1 = run(**caps)
+    assert st0["fallback_frags"] == 0 and st1["fallback_frags"] > 0
+    assert st1["redone_queries"] == 2
+    assert (c0 > 0).sum() == 4
+    np.testing.assert_array_equal(c1, c0)
+    np.testing.assert_allclose(s1, s0, rtol=1e-6)
+
+
+@pytest.mark.parametrize("over,limit", [
+    (dict(max_span=1100, l2_overflow=1), "limit of 1022 of the L2 event"),
+    (dict(max_s=1100, sk_overflow=1), "limit of 1023 of the L2 event"),
+    (dict(max_hits=40000, l1_overflow=1), "limit of 32768 of the K3 row"),
+    (dict(max_span=700, l2_overflow=1, max_groups=130, l1_overflow=1,
+          n_units=5000, unit_overflow=1), None)],
+    ids=["l2_entry_cap", "sketch_cap", "hits_cap", "grow"])
+def test_redo_caps_grow_to_counters_or_raise_at_kernel_limits(over, limit):
+    """The redo's caps hold what the counters saw, rounded up to the
+    kernels' steps; past a kernel's width limit CapOverflowError names
+    the cap, the need and the limit."""
+    from fastani_tpu_torch.models import jitmap
+
+    cfg = jitmap.MapperConfig(
+        kmer_size=16, window_size=24, frag_len=3000, sketch_cap=320,
+        hits_cap=8192, cand_cap=128, l2_entry_cap=128, unit_cap=4096,
+        unit_chunk=512, freq_threshold=1 << 30, wpos_bits=None)
+    c = dict.fromkeys(jitmap.COUNT_NAMES, 0)
+    c.update(max_s=250, max_hits=4000, max_groups=50, max_span=100,
+             n_units=1000)
+    c.update(over)
+    if limit is not None:
+        with pytest.raises(pipeline.CapOverflowError, match=limit):
+            pipeline._grown_caps(cfg, c)
+    else:
+        assert pipeline._grown_caps(cfg, c) == dict(
+            cand_cap=192, l2_entry_cap=768, unit_cap=5120)

@@ -55,14 +55,30 @@ def test_winnow_rows_match_deque_model(k, seg):
     n_run[500:1400] = ord("N")            # whole rows without an event
     contigs.append(n_run)
     rows, ctg, base, tl = _rows(contigs, k, w, seg)
-    emit, h, wpos = winnow.winnow_rows(rows, ctg, base, tl, k, w)
+    emit, h = winnow.winnow_rows(rows, ctg, base, tl, k, w)
+    wpos = winnow.positions(base, h.shape[1], w)
+    assert h.dtype == torch.int32          # u32 bits in int32 words
     for ci, s in enumerate(contigs):
         m = ctg == ci
         e = emit[m].reshape(-1)
         want_h, want_w = jmin.winnow_model(s, k, w)
-        np.testing.assert_array_equal(h[m].reshape(-1)[e].numpy(),
-                                      want_h.astype(np.int64))
+        np.testing.assert_array_equal(
+            h[m].reshape(-1)[e].numpy().astype(np.int64) & 0xFFFFFFFF,
+            want_h.astype(np.int64))
         np.testing.assert_array_equal(wpos[m].reshape(-1)[e].numpy(), want_w)
+
+
+@pytest.mark.parametrize("seg,tile_max,want", [
+    (17 * 1024, 2048, (1952, 9)), (2985, 2048, (1504, 2)),
+    (200, 2048, (224, 1)), (4096, 2048, (2048, 2)), (4097, 1024, (832, 5))])
+def test_winnow_tile_geometry(seg, tile_max, want):
+    """K1's tiles: the index build's rows (17408 scored positions) in nine,
+    the sketch's (2985) in two; multiples of 32, at most tile_max, the
+    last tile the shortest, every position covered."""
+    tile, n_tiles = winnow.tile_geometry(seg, tile_max)
+    assert (tile, n_tiles) == want
+    assert tile % 32 == 0 and tile <= max(tile_max, 32)
+    assert (n_tiles - 1) * tile < seg <= n_tiles * tile
 
 
 def test_compact_rows_matches_jax_fallback():
