@@ -8,8 +8,11 @@ Phases, one JSON line each; any failure exits non-zero:
 1. device: name, count, ``nvidia-smi`` name and power limit; build the
    four CUDA sources (one nvcc each, all at once).
 2. golden: tests/test_golden_frozen.py's fixtures (seed 2024) through the
-   port's CLI on the card, against tests/golden/one2one.txt and multi.txt
-   (this also warms the path up before phase 3 is timed).
+   port's CLI on the card, against tests/golden/one2one.txt and multi.txt:
+   the fast path (same rows, equal counts, ANI within 0.1), then the exact
+   path (``--exact --visualize --matrix``: TSV, .matrix and .visual
+   byte-equal as sorted lines).  This also warms the path up before phase
+   3 is timed.
 3. main path: bench.py's ``mid`` workload (32 genomes x 3 Mbp,
    all-vs-all, seed 123) through the port's CLI on the card; phase times,
    genome-pairs/s, peak memory, the counters' maxima, every kernel's
@@ -20,6 +23,17 @@ Phases, one JSON line each; any failure exits non-zero:
    against the port's CPU run of the same inputs (same rows, equal counts,
    ANI within 1e-3); its launches (zeroed just before it), the queries
    redone and the overflowed fragments, which must be > 0.
+3c. exact: mid through the CLI's exact path (``--exact --matrix
+   --visualize``) on the card; the same numbers as phase 3 plus the host's
+   row reads, fold and .visual write; 0 fallback fragments, every kernel
+   launched (counts zeroed just before it); rows and counts equal to phase
+   3's, ANI within 1e-3 of it; as many .visual lines as the CGI rows'
+   mapped fragments.  The .visual file is deleted afterwards.
+3d. sanity and oracle: ``-s`` on a pure-A query against an 8A+1T repeat
+   reference writes no row; then the exact path on the golden fixtures at
+   ``l2_entry_cap`` 128 with the kernels' L2 span limit patched down to
+   730 entries, so the fragments past it go to the scalar oracle
+   (``utils/refmodel.py``): the three files byte-equal to the CPU run's.
 4. kernels: K1-K3 at each of their main-path call sites, on the inputs
    the path itself gives them: ``run_fast`` on the first three mid genomes
    against all 32 (the mid index, two batches) with the wrappers wrapped,
@@ -40,7 +54,9 @@ Phases, one JSON line each; any failure exits non-zero:
    counts an FMA); its line also prints the bound by the formula of the
    row-per-block kernel it replaced (``bound_row_kernel_ms``).
 
-Then the kernels table, the nvidia-smi line, and as the last line
+Then the kernels table (each kernel's launches on mid through the fast
+path, ``launches``, and through the exact path, ``launches_exact``), the
+nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits non-zero and prints no result.
 """
@@ -565,6 +581,21 @@ def run_golden(np):
                 raise AssertionError(f"{golden}: ANI off by {dev_max}")
             emit({"phase": "golden", "golden": golden, "rows": len(ours),
                   "max_ani_diff": dev_max})
+            out = "x_" + args[-1]
+            if cli.main(args[:-1] + [out, "--exact", "--visualize",
+                                     "--matrix", "--device", "cuda"]) != 0:
+                raise AssertionError(f"exact CLI failed: {args}")
+            lines = {}
+            for suf in ("", ".matrix", ".visual"):
+                ours = sorted(open(out + suf).read().splitlines())
+                want = sorted((ROOT / "tests" / "golden" / (golden + suf))
+                              .read_text().splitlines())
+                if ours != want:
+                    raise AssertionError(f"exact {golden}{suf} differs from "
+                                         f"the golden")
+                lines[suf or ".tsv"] = len(ours)
+            emit({"phase": "golden_exact", "golden": golden,
+                  "byte_equal_lines": lines})
     finally:
         os.chdir(cwd)
     return wd
@@ -624,6 +655,151 @@ def run_redo(torch, wd: pathlib.Path):
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         raise AssertionError(f"redo: kernels not launched: {missing}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the exact path at a real size
+# ---------------------------------------------------------------------------
+
+def tsv_rows(path) -> dict:
+    return {tuple(ln.split("\t")[:2]): ln.split("\t")[2:]
+            for ln in pathlib.Path(path).read_text().split("\n") if ln}
+
+
+def run_exact_mid(torch, n_genomes: int):
+    """Phase 3's genomes and list through the CLI's exact path; returns
+    the kernels' launches in this run."""
+    from fastani_tpu_torch import cli
+    from fastani_tpu_torch.ops import cuda as kc
+
+    wd = WORK / "mid"
+    genomes, out = wd / "genomes.txt", wd / "mid_exact.txt"
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kc.reset_launches()
+    t0 = time.time()
+    rc = cli.main(["--ql", str(genomes), "--rl", str(genomes), "-o", str(out),
+                   "--exact", "--matrix", "--visualize", "--device", "cuda"],
+                  stats=stats)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    if rc != 0:
+        raise AssertionError(f"exact CLI exited with {rc}")
+    launches = dict(kc.LAUNCHES)
+    got, want = tsv_rows(out), tsv_rows(wd / "mid.txt")
+    visual = pathlib.Path(f"{out}.visual")
+    with open(visual, "rb") as f:
+        n_visual = sum(1 for _ in f)
+    visual_bytes = visual.stat().st_size
+    visual.unlink()
+    n_pairs = n_genomes * n_genomes
+    dev_max = max((abs(float(got[k][0]) - float(want[k][0]))
+                   for k in want if k in got), default=0.0)
+    mapped = sum(int(r[1]) for r in got.values())
+    emit({"phase": "exact", "genomes": n_genomes, "pairs": n_pairs,
+          "wall_s": wall, "pairs_per_s": n_pairs / wall,
+          "t_index_build_s": stats["t_index_build"],
+          "t_mapper_init_s": stats["t_mapper_init"],
+          "t_map_s": stats["t_map"], "t_rows_s": stats["t_rows"],
+          "t_fold_s": stats["t_fold"], "t_visual_s": stats["t_visual"],
+          "t_write_s": stats["t_write"],
+          "map_fold_s": stats["t_map"] + stats["t_fold"],
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "batches": stats["batches"],
+          "fallback_frags": stats["fallback_frags"],
+          "oracle_frags": stats["oracle_frags"], "launches": launches,
+          "tsv_rows": len(got), "max_ani_diff_vs_fast": dev_max,
+          "visual_lines": n_visual, "visual_bytes": visual_bytes,
+          "mapped_fragments": mapped})
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"exact: kernels not launched: {missing}")
+    if stats["fallback_frags"]:
+        raise AssertionError(f"exact: {stats['fallback_frags']} fragments "
+                             f"fell back")
+    if set(got) != set(want) or len(got) != n_pairs:
+        raise AssertionError(f"exact: {len(got)} rows, fast path "
+                             f"{len(want)}")
+    for k, r in want.items():
+        if got[k][1:] != r[1:]:
+            raise AssertionError(f"exact: counts differ at {k}: {got[k]} "
+                                 f"vs {r}")
+    if dev_max > 1e-3:
+        raise AssertionError(f"exact: ANI off the fast path's by {dev_max}")
+    # every CGI row is in the TSV (all pairs pass), and each of its mapped
+    # fragments is one .visual line
+    if n_visual != mapped:
+        raise AssertionError(f"exact: {n_visual} .visual lines for "
+                             f"{mapped} mapped fragments")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: the sanity check and the scalar oracle's route
+# ---------------------------------------------------------------------------
+
+def run_sanity_and_oracle(torch, np, wd: pathlib.Path):
+    from fastani_tpu_torch import cli
+    from fastani_tpu_torch.config import Parameters
+    from fastani_tpu_torch.models import glue, pipeline
+    from fastani_tpu_torch.ops import cuda as kc
+
+    def rpt(unit):
+        return np.frombuffer((unit * (300_000 // len(unit) + 1))[:300_000],
+                             np.uint8).copy()
+
+    write_fasta(wd / "rpt_q.fa", [("q", rpt(b"A" * 32))])
+    write_fasta(wd / "rpt_r.fa", [("r", rpt(b"A" * 8 + b"T"))])
+    stats = {}
+    rc = cli.main(["-q", str(wd / "rpt_q.fa"), "-r", str(wd / "rpt_r.fa"),
+                   "-o", str(wd / "rpt.txt"), "-s", "--matrix",
+                   "--device", "cuda"], stats=stats)
+    rows = (wd / "rpt.txt").read_text()
+    emit({"phase": "sanity", "rc": rc, "tsv_bytes": len(rows),
+          "mapped": "batches" in stats})
+    if rc != 0 or rows or "batches" in stats:
+        raise AssertionError("sanity: the repeat pair was mapped")
+
+    counter, step, limit, holder = glue._CAPS["l2_entry_cap"]
+    glue._CAPS["l2_entry_cap"] = (counter, step, 730, holder)
+
+    def run(device):
+        stats = {}
+        out = str(wd / f"oracle_{device}.txt")
+        pipeline.run(Parameters(
+            query_sequences=[str(wd / "multi.fa"), str(wd / "base.fa")],
+            ref_sequences=[str(wd / "strainA.fa"), str(wd / "strainB.fa")],
+            l2_entry_cap=128, visualize=True, matrix_output=True,
+            out_file_name=out), device=device, log=lambda m: None,
+            stats=stats)
+        return [open(out + suf, "rb").read()
+                for suf in ("", ".matrix", ".visual")], stats
+
+    try:
+        torch.cuda.synchronize()
+        kc.reset_launches()
+        t0 = time.time()
+        got, st = run("cuda")
+        torch.cuda.synchronize()
+        t_card = time.time() - t0
+        launches = dict(kc.LAUNCHES)
+        t0 = time.time()
+        want, st_cpu = run("cpu")
+        t_cpu = time.time() - t0
+    finally:
+        glue._CAPS["l2_entry_cap"] = (counter, step, limit, holder)
+    emit({"phase": "oracle", "l2_entry_cap": 128, "l2_limit": 730,
+          "fallback_frags": st["fallback_frags"],
+          "oracle_frags": st["oracle_frags"],
+          "oracle_frags_cpu": st_cpu["oracle_frags"],
+          "byte_equal": got == want, "visual_lines": got[2].count(b"\n"),
+          "launches": launches, "t_card_s": t_card, "t_cpu_s": t_cpu})
+    if not st["oracle_frags"] or st["oracle_frags"] != st_cpu["oracle_frags"]:
+        raise AssertionError("oracle: no fragment reached the oracle, or not "
+                             "the CPU run's")
+    if got != want:
+        raise AssertionError("oracle: card and CPU outputs differ")
 
 
 # ---------------------------------------------------------------------------
@@ -733,6 +909,8 @@ def main() -> int:
     golden_dir = run_golden(np)
     launches, paths, batches = run_main_path(torch, np, N_GENOMES, GENOME_BP)
     run_redo(torch, golden_dir)
+    launches_exact = run_exact_mid(torch, N_GENOMES)
+    run_sanity_and_oracle(torch, np, golden_dir)
     kernels = check_kernels(torch, np, paths, batches, launches)
 
     table = []
@@ -740,6 +918,7 @@ def main() -> int:
         r = kernels[name]
         table.append({"name": name, "route": "cuda", "source": SOURCE[name],
                       "replaces": REPLACES[name], "launches": launches[name],
+                      "launches_exact": launches_exact[name],
                       "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],

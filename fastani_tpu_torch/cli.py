@@ -3,10 +3,13 @@
 
     python -m fastani_tpu_torch.cli -q genome1.fa -r genome2.fa -o out.txt
     python -m fastani_tpu_torch.cli --ql queries.txt --rl refs.txt -o out.txt --matrix
+    python -m fastani_tpu_torch.cli -q a.fa -r b.fa -o out.txt --exact --visualize
 
-It runs the fast path (``models.pipeline.run_fast``) on ``--device``
-(default ``cuda``).  ``--visualize`` and ``-s`` need the exact path, which
-is not ported yet, and are refused.
+It runs on ``--device`` (default ``cuda``) the fast path
+(``models.pipeline.run_fast``), or, with ``--exact``, ``--visualize`` or
+``-s``, the exact path (``models.pipeline.run``: the host fold, whose TSV
+and ``.matrix`` are byte-equal to the reference's, the ``.visual`` file
+and the repeat sanity check).
 """
 
 from __future__ import annotations
@@ -71,12 +74,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--maxRatioDiff", type=float, default=100.0,
                    help="max sanity-check ratio difference [100.0] (with -s)")
     p.add_argument("--visualize", action="store_true",
-                   help="output mappings for visualization (not ported yet)")
+                   help="output mappings for visualization (exact path)")
     p.add_argument("--matrix", action="store_true",
                    help="also output phylip-style lower-triangular matrix")
     p.add_argument("-o", "--output", help="output file name")
     p.add_argument("-s", "--sanityCheck", action="store_true",
-                   help="run sanity check (not ported yet)")
+                   help="run the repeat sanity check (exact path)")
+    p.add_argument("--exact", action="store_true",
+                   help="fold the mappings on the host as the reference does "
+                        "(byte-equal TSV and .matrix); implied by "
+                        "--visualize and -s")
     p.add_argument("-v", "--version", action="store_true", help="show version")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on [cuda]; 'cpu' runs the plain "
@@ -85,8 +92,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None, stats: Optional[dict] = None) -> int:
-    """Run the CLI; ``stats``, when given, receives ``run_fast``'s phase
-    wall times and counters."""
+    """Run the CLI; ``stats``, when given, receives the path's phase wall
+    times and counters."""
     args = build_parser().parse_args(argv)
     if args.version:
         print(f"fastani_tpu_torch {__version__}")
@@ -100,16 +107,14 @@ def main(argv=None, stats: Optional[dict] = None) -> int:
     if not args.output:
         print("Provide output file (-o)", file=sys.stderr)
         return 1
-    if args.visualize or args.sanityCheck:
-        print("ERROR, fastani_tpu_torch, --visualize and -s need the exact "
-              "path, which is not ported yet (use fastani_tpu)",
-              file=sys.stderr)
-        return 1
     params = Parameters(
         kmer_size=args.kmer,
         frag_len=args.fragLen,
         min_fraction=args.minFraction,
+        max_ratio_diff=args.maxRatioDiff,
+        visualize=args.visualize,
         matrix_output=args.matrix,
+        sanity_check=args.sanityCheck,
         out_file_name=args.output,
         ref_sequences=[args.ref] if args.ref else parse_file_list(args.refList),
         query_sequences=([args.query] if args.query
@@ -119,7 +124,11 @@ def main(argv=None, stats: Optional[dict] = None) -> int:
                          + list(params.ref_sequences))
     from fastani_tpu_torch.models import pipeline
 
-    pipeline.run_fast(params, device=args.device, stats=stats)
+    # the .visual rows and the sanity ratios come from the exact path only
+    # (reference: one binary covers all modes, parseCmdArgs.hpp:114-234)
+    exact = args.exact or args.visualize or args.sanityCheck
+    run = pipeline.run if exact else pipeline.run_fast
+    run(params, device=args.device, stats=stats)
     return 0
 
 

@@ -34,7 +34,10 @@ class Parameters:
     ref_sequences: List[str] = dataclasses.field(default_factory=list)
     query_sequences: List[str] = dataclasses.field(default_factory=list)
     out_file_name: str = ""
+    visualize: bool = False
     matrix_output: bool = False
+    max_ratio_diff: float = 100.0
+    sanity_check: bool = False
 
     # capacity caps of the fixed-width buffers; a query genome that owns a
     # fragment over one is redone exactly with caps sized to its data

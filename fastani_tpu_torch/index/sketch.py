@@ -12,6 +12,9 @@ index is a pair of sorted dense arrays on the device:
 
 Arrays may be padded past ``n_entries`` (hash UMAX, seqId/wpos 2^30), as
 the device build leaves them.  Hashes are int64 tensors holding u32.
+``host_view`` reads the true entries back once, as numpy, for the scalar
+oracle (``utils/refmodel.py``); ``sanity_check`` is the repeat check of
+``-s`` (winSketch.hpp:298-318).
 """
 
 from __future__ import annotations
@@ -32,6 +35,23 @@ class ContigInfo:
 
 
 @dataclasses.dataclass
+class HostIndex:
+    """Numpy copy of an index's true entries (what ``utils/refmodel.py``
+    reads); hashes are int64 u32 values."""
+    mi_hash: np.ndarray                  # (M,) build order
+    mi_seqid: np.ndarray
+    mi_wpos: np.ndarray
+    occ_hash: np.ndarray                 # (M,) lookup order
+    occ_seqid: np.ndarray
+    occ_wpos: np.ndarray
+    freq_threshold: int
+
+    @property
+    def num_entries(self) -> int:
+        return len(self.mi_hash)
+
+
+@dataclasses.dataclass
 class ReferenceIndex:
     metadata: List[ContigInfo]
     # file boundaries: sequences_by_file[f] = one-past-last seqId of file f
@@ -49,6 +69,11 @@ class ReferenceIndex:
     # True if a piece of the build overflowed the per-piece cap;
     # build_device then rebuilds losslessly, so a finished index says False
     overflow: bool = False
+    # sanity-check ratios (winSketch.hpp:298-318), set by sanity_check
+    hash_ratio: float = 0.0
+    uniq_hash_ratio: float = 0.0
+    ratio_difference: float = 0.0
+    _host: Optional[HostIndex] = dataclasses.field(default=None, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -57,6 +82,47 @@ class ReferenceIndex:
     def check_build_overflow(self) -> bool:
         """Overflow flag of this index's build (checked on every build)."""
         return self.overflow
+
+    def host_view(self) -> HostIndex:
+        """The true entries (pads cut) as numpy arrays, read from the
+        device once and cached."""
+        if self._host is None:
+            n = self.n_entries
+            rd = lambda t: t[:n].cpu().numpy()
+            self._host = HostIndex(
+                mi_hash=rd(self.mi_hash), mi_seqid=rd(self.mi_seqid),
+                mi_wpos=rd(self.mi_wpos), occ_hash=rd(self.occ_hash),
+                occ_seqid=rd(self.occ_seqid), occ_wpos=rd(self.occ_wpos),
+                freq_threshold=self.freq_threshold)
+        return self._host
+
+    def num_unique_hashes(self) -> int:
+        """Distinct hashes among the true entries, counted on the device
+        (one scalar read)."""
+        occ = self.occ_hash[: self.n_entries]
+        if not len(occ):
+            return 0
+        return int((occ[1:] != occ[:-1]).sum()) + 1
+
+    def sanity_check(self, max_ratio_diff: float) -> bool:
+        """Repeat sanity check (winSketch.hpp:298-318): hashRatio = total
+        length / entries, uniqHashRatio = total length / unique hashes, in
+        float32; the index fails when they differ by more than
+        ``max_ratio_diff``.  An empty index fails (the reference would
+        divide by zero)."""
+        total_size = float(self.n_entries)
+        total_length = float(sum(c.length for c in self.metadata))
+        uniq = float(self.num_unique_hashes())
+        if total_size == 0 or uniq == 0:
+            self.hash_ratio = float("inf")
+            self.uniq_hash_ratio = float("inf")
+            self.ratio_difference = float("nan")
+            return False
+        self.hash_ratio = np.float32(total_length) / np.float32(total_size)
+        self.uniq_hash_ratio = np.float32(total_length) / np.float32(uniq)
+        self.ratio_difference = abs(np.float32(self.hash_ratio)
+                                    - np.float32(self.uniq_hash_ratio))
+        return not (self.ratio_difference > max_ratio_diff)
 
     def genome_of_seq(self) -> np.ndarray:
         """seqId -> genome (file) id via upper_bound on the file boundaries

@@ -29,6 +29,12 @@ COUNT_NAMES = ("n_valid", "sk_overflow", "l1_overflow", "l2_overflow",
                "max_span", "n_units", "sum_hits")
 
 
+def overflowed(counts: dict) -> bool:
+    """Whether a batch's counts (named by COUNT_NAMES) say a fragment
+    overflowed a cap: the sketch, L1, L2 or unit flag."""
+    return any(counts[key] for key in COUNT_NAMES[1:5])
+
+
 @functools.lru_cache(maxsize=None)
 def gate_lut_np(k: int, perc_identity: float, s_max: int) -> np.ndarray:
     """min_c[s] = smallest shared count whose CI upper bound passes the

@@ -1,9 +1,10 @@
-"""Output writers: ANI TSV and phylip-style matrix (counterpart of
-``fastani_tpu/models/output.py``: ``write_cgi``, ``write_phylip``).
+"""Output writers: ANI TSV, phylip-style matrix and the .visual mapping
+dump (counterpart of ``fastani_tpu/models/output.py``).
 
 Byte-compatible with the reference writers (computeCoreIdentity.hpp:
-307-344 outputCGI, :353-448 outputPhylip): identities print like C++
-``operator<<(float)`` (%.6g) in the TSV and like std::to_string(float)
+307-344 outputCGI, :353-448 outputPhylip, :103-153
+outputVisualizationFile): identities print like C++ ``operator<<(float)``
+(%.6g) in the TSV and the .visual file, and like std::to_string(float)
 (%.6f) in the matrix.
 """
 
@@ -13,7 +14,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from fastani_tpu_torch.models.ani import CGIResult
+from fastani_tpu_torch.models.ani import CGIResult, VisualRow
 
 
 def _fmt_float(x: np.float32) -> str:
@@ -80,3 +81,28 @@ def write_phylip(rows: List[CGIResult], genome_lengths: Dict[str, int],
                 val = "%.6f" % float(mat[i][j]) if mat[i][j] > 0.0 else "NA"
                 f.write("\t" + val)
             f.write("\n")
+
+
+def write_visual(visual_rows: List[VisualRow], params, query_file_no: int,
+                 query_offsets: np.ndarray, ref_offsets: np.ndarray,
+                 path: str, append: bool) -> None:
+    """BLAST-outfmt6-like rows in genome-global coordinates
+    (computeCoreIdentity.hpp:103-153).
+
+    query_offsets: prefix sums over the query's visualization metadata
+    (one entry per fragment and one per skipped short contig,
+    computeMap.hpp:160-167), indexed directly by querySeqId as the
+    reference does at :145-146 — so a short contig before a mapped one
+    shifts that contig's offsets by one entry, as in the reference.
+    ref_offsets: global offset of each reference contig."""
+    l = params.frag_len
+    with open(path + ".visual", "a" if append else "w") as f:
+        for e in visual_rows:
+            qoff = int(query_offsets[e.query_seq_id])
+            roff = int(ref_offsets[e.ref_seq_id])
+            f.write("%s\t%s\t%s\tNA\tNA\tNA\t%d\t%d\t%d\t%d\tNA\tNA\n" % (
+                params.query_sequences[query_file_no],
+                params.ref_sequences[e.genome_id],
+                _fmt_float(e.identity),
+                e.query_start + qoff, e.query_start + l - 1 + qoff,
+                e.ref_start + roff, e.ref_start + l - 1 + roff))

@@ -1,11 +1,14 @@
 """Card-only parity tests of the port's CUDA kernels (K1-K5) against their
-plain PyTorch versions, and of the whole fast path on the card against the
-same run on the CPU.  Each test asks for the ``cuda_device`` fixture, which
+plain PyTorch versions, and of the fast and exact paths on the card against
+the same runs on the CPU.  Each test asks for the ``cuda_device`` fixture, which
 skips when no NVIDIA GPU is present; run them on the card (where JAX, which
 tests/conftest.py imports, need not be installed) with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
+
+import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -14,7 +17,7 @@ import torch
 from fastani_tpu_torch.config import Parameters
 from fastani_tpu_torch.index import device_build
 from fastani_tpu_torch.index.sketch import ReferenceIndex
-from fastani_tpu_torch.models import jitmap, l2walk, pipeline
+from fastani_tpu_torch.models import glue, jitmap, l2walk, pipeline
 from fastani_tpu_torch.ops import compact, sort, winnow
 from fastani_tpu_torch.ops.xputils import u32_as_i32
 
@@ -252,3 +255,69 @@ def test_run_fast_redo_card_matches_cpu(cuda_device, tmp_path):
 def test_run_fast_card_matches_cpu(cuda_device, tmp_path):
     stats = _run_fast_card_and_cpu(tmp_path)
     assert stats["cuda"]["fallback_frags"] == 0
+
+
+def _golden_fixtures(wd, monkeypatch):
+    """tests/test_golden_frozen.py's fixtures (seed 2024), made by
+    chip_smoke.py's copy of the generators (a ``tests`` package elsewhere on
+    the card machine's path may shadow this one); the working directory
+    becomes theirs, so the outputs name the files as the goldens do."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(2024)
+    base = cs.genome_bytes(np, rng, 150_000)
+    strains = [cs.mutate_genome(np, rng, base, 0.02, 0.0003),
+               cs.mutate_genome(np, rng, base, 0.05, 0.0005)]
+    multi = [("m_ctg1", cs.mutate_genome(np, rng, base[:80_000], 0.01)),
+             ("m_short", cs.genome_bytes(np, rng, 800)),
+             ("m_ctg2", cs.mutate_genome(np, rng, base[80_000:], 0.03))]
+    cs.write_fasta(wd / "base.fa", [("base_ctg", base)])
+    cs.write_fasta(wd / "strainA.fa", [("sA_ctg", strains[0])])
+    cs.write_fasta(wd / "strainB.fa", [("sB_ctg", strains[1])])
+    cs.write_fasta(wd / "multi.fa", multi)
+    monkeypatch.chdir(wd)
+    return ["multi.fa", "base.fa"], ["strainA.fa", "strainB.fa"]
+
+
+def _exact_files(q, r, device, tag, **kw):
+    out = f"{tag}_{device}.txt"
+    stats = {}
+    pipeline.run(Parameters(query_sequences=q, ref_sequences=r,
+                            visualize=True, matrix_output=True,
+                            out_file_name=out, **kw),
+                 device=device, log=lambda m: None, stats=stats)
+    return [open(out + suf).read() for suf in ("", ".matrix", ".visual")], \
+        stats
+
+
+@pytest.mark.parametrize("qi,ri,golden", [(1, [0], "one2one.txt"),
+                                          (0, [0, 1], "multi.txt")])
+def test_exact_card_matches_cpu(cuda_device, tmp_path, monkeypatch, qi, ri,
+                                golden):
+    """The exact path on the golden fixtures: TSV, .matrix and .visual
+    byte-equal on the card and on the CPU, and to the frozen goldens."""
+    q, r = _golden_fixtures(tmp_path, monkeypatch)
+    q, r = [q[qi]], [r[i] for i in ri]
+    got, st = _exact_files(q, r, "cuda", "x")
+    want, _ = _exact_files(q, r, "cpu", "x")
+    assert got == want and st["fallback_frags"] == 0
+    gdir = pathlib.Path(__file__).resolve().parent / "golden"
+    for text, suf in zip(got, ("", ".matrix", ".visual")):
+        assert sorted(text.splitlines()) == \
+            sorted((gdir / (golden + suf)).read_text().splitlines()), suf
+
+
+def test_exact_oracle_route_card_matches_cpu(cuda_device, tmp_path,
+                                             monkeypatch):
+    """l2_entry_cap 128 with the kernels' L2 span limit patched down to 730:
+    the fragments past it reach the scalar oracle on both devices, and the
+    three files are byte-equal."""
+    q, r = _golden_fixtures(tmp_path, monkeypatch)
+    counter, step, _, holder = glue._CAPS["l2_entry_cap"]
+    monkeypatch.setitem(glue._CAPS, "l2_entry_cap",
+                        (counter, step, 730, holder))
+    got, st = _exact_files(q, r, "cuda", "o", l2_entry_cap=128)
+    want, st_cpu = _exact_files(q, r, "cpu", "o", l2_entry_cap=128)
+    assert got == want
+    assert st["oracle_frags"] == st_cpu["oracle_frags"] > 0

@@ -12,7 +12,7 @@ import torch
 
 from fastani_tpu_torch import cli
 from fastani_tpu_torch.config import Parameters
-from fastani_tpu_torch.models import pipeline
+from fastani_tpu_torch.models import glue, pipeline
 from tests import synth
 
 # one intra-op thread: the suite runs several xdist workers per core, and
@@ -163,17 +163,22 @@ def test_map_queries_redo_matches_uncapped(workdir, caps):
     np.testing.assert_allclose(s1, s0, rtol=1e-6)
 
 
-@pytest.mark.parametrize("over,limit", [
-    (dict(max_span=1100, l2_overflow=1), "limit of 1022 of the L2 event"),
-    (dict(max_s=1100, sk_overflow=1), "limit of 1023 of the L2 event"),
-    (dict(max_hits=40000, l1_overflow=1), "limit of 32768 of the K3 row"),
+@pytest.mark.parametrize("over,limit,clamped", [
+    (dict(max_span=1100, l2_overflow=1), "limit of 1022 of the L2 event",
+     dict(l2_entry_cap=1022)),
+    (dict(max_s=1100, sk_overflow=1), "limit of 1023 of the L2 event",
+     dict(sketch_cap=1023)),
+    (dict(max_hits=40000, l1_overflow=1), "limit of 32768 of the K3 row",
+     dict(hits_cap=32768)),
     (dict(max_span=700, l2_overflow=1, max_groups=130, l1_overflow=1,
-          n_units=5000, unit_overflow=1), None)],
+          n_units=5000, unit_overflow=1), None, None)],
     ids=["l2_entry_cap", "sketch_cap", "hits_cap", "grow"])
-def test_redo_caps_grow_to_counters_or_raise_at_kernel_limits(over, limit):
+def test_redo_caps_grow_to_counters_or_raise_at_kernel_limits(over, limit,
+                                                              clamped):
     """The redo's caps hold what the counters saw, rounded up to the
     kernels' steps; past a kernel's width limit CapOverflowError names
-    the cap, the need and the limit."""
+    the cap, the need and the limit, and carries the growth clamped to
+    the limit (what the caller maps with before the scalar oracle)."""
     from fastani_tpu_torch.models import jitmap
 
     cfg = jitmap.MapperConfig(
@@ -185,8 +190,9 @@ def test_redo_caps_grow_to_counters_or_raise_at_kernel_limits(over, limit):
              n_units=1000)
     c.update(over)
     if limit is not None:
-        with pytest.raises(pipeline.CapOverflowError, match=limit):
-            pipeline._grown_caps(cfg, c)
+        with pytest.raises(glue.CapOverflowError, match=limit) as err:
+            glue._grown_caps(cfg, c)
+        assert err.value.caps == clamped
     else:
-        assert pipeline._grown_caps(cfg, c) == dict(
+        assert glue._grown_caps(cfg, c) == dict(
             cand_cap=192, l2_entry_cap=768, unit_cap=5120)
