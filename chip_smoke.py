@@ -34,6 +34,31 @@ Phases, one JSON line each; any failure exits non-zero:
    ``l2_entry_cap`` 128 with the kernels' L2 span limit patched down to
    730 entries, so the fragments past it go to the scalar oracle
    (``utils/refmodel.py``): the three files byte-equal to the CPU run's.
+3e. mesh: the sharded runner on the card, one process running every cell.
+   Mid through ``--mesh 2x2`` (2 reference shards x 2 slices of each
+   batch; every kernel's launches counted from 0 just before it): rows and
+   counts equal to phase 3's, ANI within 1e-3; every kernel held bit-equal
+   to its plain version at each of this run's call sites, on the inputs
+   the run gave it (``kernel_sites``: the first call at each of up to three
+   shapes a site), and the sites' launches adding up to the run's
+   (``check_sites``); mid through ``--mesh 2x2
+   --exact --matrix``: TSV and .matrix byte-equal to phase 3c's; the golden
+   fixtures through ``--mesh 2x2 --exact --visualize -s --matrix``: the
+   three files byte-equal to phase 2's exact run; ``--saveIndex`` then
+   ``--loadIndex`` without ``--rl``, single-device and ``--mesh 2x2``, on
+   both paths: the exact TSV byte-equal to the fresh run's, the fast one
+   with the same rows and counts, ANI within 1e-3 (the device fold adds
+   float32 identities with atomics, so two card runs of the fast path may
+   differ in the last printed digit); one process over NCCL
+   (``--coordinator 127.0.0.1:<free port> --nprocs 1 --procid 0``, in a
+   process of its own) logs backend nccl and writes phase 2's fast-path
+   rows and counts; the hits_cap auto-tune where it engages (bench.py's
+   generator, seed 123, 40 genomes x 1 Mbp: static cap 10240): the static
+   and tuned caps and max_hits, the rows and counts of the run with
+   ``pipeline.autotune_hits_cap`` patched to return its mapper, and the
+   tuned run's call sites checked as the mesh's, K1-K3 under
+   ``Mapper.probe_hits`` among them.  Each run prints its wall, pairs/s
+   and peak device memory.
 4. kernels: K1-K3 at each of their main-path call sites, on the inputs
    the path itself gives them: ``run_fast`` on the first three mid genomes
    against all 32 (the mid index, two batches) with the wrappers wrapped,
@@ -55,7 +80,9 @@ Phases, one JSON line each; any failure exits non-zero:
    row-per-block kernel it replaced (``bound_row_kernel_ms``).
 
 Then the kernels table (each kernel's launches on mid through the fast
-path, ``launches``, and through the exact path, ``launches_exact``), the
+path, ``launches``, through the exact path, ``launches_exact``, and
+through ``--mesh 2x2``, ``launches_mesh``, with the largest error of its
+mesh sites, ``max_abs_err_mesh``), the
 nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits non-zero and prints no result.
@@ -63,6 +90,7 @@ rest of the repository beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pathlib
@@ -112,6 +140,8 @@ SITES = {
     ("compact", "locate_units", 0): "valid units",
     ("sort", "sketch_fragments", 0): "sketch",
     ("sort", "l1_candidates", 0): "L1 hits",
+    ("sort_kv", "build_events", 0): "L2 events",
+    ("walk", "l2_walk_units", 0): "L2 walk",
 }
 # the site whose numbers stand for the kernel in the kernels table
 TABLE_SITE = {"winnow": "sketch", "compact": "L1 leaders", "sort": "L1 hits"}
@@ -324,19 +354,54 @@ def kv_inputs(torch, dev):
     return keys, pay
 
 
-def capture_sites(torch, paths):
-    """The inputs K1-K3 get on the main path: ``run_fast`` on the first
-    three of ``paths`` against all of them, with each kernel's wrapper
-    wrapped.  Returns ({(kernel, site): {"args", "kw", "calls",
-    "per_batch"}}, batches): each call site's first inputs and its calls
-    (the index build's, or over all batches)."""
-    from fastani_tpu_torch.config import Parameters
-    from fastani_tpu_torch.models import pipeline
+def wrapper_fns() -> dict:
+    """kernel -> (module, name) of the wrapper that launches it."""
+    from fastani_tpu_torch.models import l2walk
     from fastani_tpu_torch.ops import compact, sort, winnow
 
-    wrappers = {"winnow": (winnow, "winnow_rows"),
-                "compact": (compact, "compact_rows"),
-                "sort": (sort, "sort_rows_u32")}
+    return {"winnow": (winnow, "winnow_rows"),
+            "compact": (compact, "compact_rows"),
+            "sort": (sort, "sort_rows_u32"),
+            "sort_kv": (sort, "sort_rows_u32_kv"),
+            "walk": (l2walk, "walk")}
+
+
+def map_tensors(torch, fn, x):
+    """``x`` with ``fn`` applied to every tensor in it (lists, tuples and
+    dicts walked)."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, (list, tuple)):
+        return type(x)(map_tensors(torch, fn, v) for v in x)
+    if isinstance(x, dict):
+        return {k: map_tensors(torch, fn, v) for k, v in x.items()}
+    return x
+
+
+def shape_key(torch, x):
+    """The shapes of the tensors in ``x`` (other values as they are), as
+    nested tuples: hashable, and JSON prints them as lists."""
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape)
+    if isinstance(x, (list, tuple)):
+        return tuple(shape_key(torch, v) for v in x)
+    if isinstance(x, dict):
+        return tuple((k, shape_key(torch, v)) for k, v in sorted(x.items()))
+    return x
+
+
+@contextlib.contextmanager
+def kernel_sites(torch, kernels, shapes_per_site: int = 1):
+    """While the body runs, the wrappers of ``kernels`` are wrapped; yields
+    the dict they fill: (kernel, calling function, line, under
+    ``Mapper.probe_hits``) -> {"calls", "launches": the kernel launches
+    the site's calls made, "inputs": [(args, kw)] of the site's first call
+    at each of its first ``shapes_per_site`` input shapes}.  The inputs are
+    copied to the host (a few synchronising copies: the device's peak
+    memory is the run's own)."""
+    from fastani_tpu_torch.ops import cuda as kc
+
+    fns = wrapper_fns()
     seen = {}
     origs = []
 
@@ -345,34 +410,113 @@ def capture_sites(torch, paths):
 
         def rec(*args, **kw):
             f = sys._getframe(1)
-            key = (kernel, f.f_code.co_name, f.f_lineno)
-            if key not in seen:
-                seen[key] = {"args": args, "kw": kw, "calls": 0,
-                             "per_batch": f.f_code.co_name != "flush"}
-            seen[key]["calls"] += 1
-            return orig(*args, **kw)
+            g, probe = f, False
+            while g is not None and not probe:
+                probe, g = g.f_code.co_name == "probe_hits", g.f_back
+            v = seen.setdefault((kernel, f.f_code.co_name, f.f_lineno, probe),
+                                {"calls": 0, "launches": 0, "inputs": [],
+                                 "shapes": set()})
+            v["calls"] += 1
+            shape = shape_key(torch, (args, kw))
+            if shape not in v["shapes"] and len(v["shapes"]) < shapes_per_site:
+                v["shapes"].add(shape)
+                v["inputs"].append(map_tensors(
+                    torch, lambda x: x.to("cpu", copy=True), (args, kw)))
+            before = kc.LAUNCHES[kernel]
+            out = orig(*args, **kw)
+            v["launches"] += kc.LAUNCHES[kernel] - before
+            return out
 
         origs.append((mod, name, orig))
         setattr(mod, name, rec)
 
-    for kernel, (mod, fn_name) in wrappers.items():
-        wrap(kernel, mod, fn_name)
-    stats = {}
+    for kernel in kernels:
+        wrap(kernel, *fns[kernel])
     try:
-        pipeline.run_fast(Parameters(ref_sequences=paths,
-                                     query_sequences=paths[:3]),
-                          device="cuda", log=lambda m: None, stats=stats)
+        yield seen
     finally:
         for mod, name, orig in origs:
             setattr(mod, name, orig)
+
+
+def site_labels(seen: dict) -> dict:
+    """``kernel_sites``'s dict keyed by (kernel, label): the label from
+    SITES by the rank of the call's line among its function's calls of the
+    kernel, "probe " in front under ``Mapper.probe_hits``; each value also
+    holds its calling function (``fn``)."""
     lines = {}
-    for kernel, fn, ln in seen:
+    for kernel, fn, ln, _ in seen:
         lines.setdefault((kernel, fn), set()).add(ln)
     sites = {}
-    for (kernel, fn, ln), v in seen.items():
+    for (kernel, fn, ln, probe), v in seen.items():
         rank = sorted(lines[(kernel, fn)]).index(ln)
-        sites[(kernel, SITES.get((kernel, fn, rank), f"{fn}:{ln}"))] = v
+        label = SITES.get((kernel, fn, rank), f"{fn}:{ln}")
+        sites[(kernel, ("probe " if probe else "") + label)] = {**v, "fn": fn}
+    return sites
+
+
+def capture_sites(torch, paths):
+    """The inputs K1-K3 get on the main path: ``run_fast`` on the first
+    three of ``paths`` against all of them, with each kernel's wrapper
+    wrapped.  Returns ({(kernel, site): {"args", "kw", "calls",
+    "per_batch"}}, batches): each call site's first inputs (on the card)
+    and its calls (the index build's, or over all batches)."""
+    from fastani_tpu_torch.config import Parameters
+    from fastani_tpu_torch.models import pipeline
+
+    stats = {}
+    with kernel_sites(torch, ("winnow", "compact", "sort")) as seen:
+        pipeline.run_fast(Parameters(ref_sequences=paths,
+                                     query_sequences=paths[:3]),
+                          device="cuda", log=lambda m: None, stats=stats)
+    sites = {}
+    for key, v in site_labels(seen).items():
+        (args, kw), = map_tensors(torch, lambda x: x.to("cuda"), v["inputs"])
+        sites[key] = {"args": args, "kw": kw, "calls": v["calls"],
+                      "per_batch": v["fn"] != "flush"}
     return sites, stats["batches"]
+
+
+def check_sites(torch, path: str, seen: dict, launches: dict) -> dict:
+    """Phase 4's check on the call sites of another path's run
+    (``kernel_sites``'s dict): each site's inputs, at each shape kept,
+    through the kernel and through its plain version on the card, bit-equal
+    (max abs err 0); the sites' launches add up to each kernel's
+    ``launches`` in that run (counted from 0 just before it).  Prints one
+    line a site and shape; returns {kernel: {"sites", "max_abs_err"}}."""
+    fns = wrapper_fns()
+    total, out = {}, {}
+    for (kernel, label), v in sorted(site_labels(seen).items()):
+        total[kernel] = total.get(kernel, 0) + v["launches"]
+        mod, name = fns[kernel]
+        for inputs in v["inputs"]:
+            args, kw = map_tensors(torch, lambda x: x.to("cuda"), inputs)
+            if kernel == "compact":
+                width = kw.get("width", args[2] if len(args) > 2
+                               else args[0].shape[1])
+                plain = mod.compact_rows_plain(args[0], args[1], width)
+            else:
+                plain = getattr(mod, name + "_plain")(*args, **kw)
+            got = getattr(mod, name)(*args, **kw)
+            as_list = lambda o: [o] if isinstance(o, torch.Tensor) else list(o)
+            err = max_abs_err(torch, as_list(got), as_list(plain))
+            emit({"phase": "kernel_site", "path": path, "name": kernel,
+                  "site": label, "shape": shape_key(torch, args),
+                  "calls": v["calls"], "launches": v["launches"],
+                  "max_abs_err": err})
+            if err != 0:
+                raise AssertionError(f"{path}: {kernel} at {label} differs "
+                                     f"from its plain version (max abs err "
+                                     f"{err})")
+            row = out.setdefault(kernel, {"sites": [], "max_abs_err": 0.0})
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        out.setdefault(kernel, {"sites": [], "max_abs_err": 0.0})[
+            "sites"].append(label)
+    want = {k: n for k, n in launches.items() if n}
+    if {k: n for k, n in total.items() if n} != want:
+        raise AssertionError(f"{path}: call sites add up to {total} "
+                             f"launches, the run made {launches}")
+    return out
 
 
 def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
@@ -803,6 +947,220 @@ def run_sanity_and_oracle(torch, np, wd: pathlib.Path):
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: the sharded runner, index persistence, the hits_cap auto-tune
+# ---------------------------------------------------------------------------
+
+def timed_cli(torch, args, stats=None) -> float:
+    """The port's CLI on the card; its wall in seconds (synchronised)."""
+    from fastani_tpu_torch import cli
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    rc = cli.main(args + ["--device", "cuda"], stats=stats)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"CLI exited with {rc}: {args}")
+    return time.time() - t0
+
+
+def run_metrics(torch, wall: float, n_pairs: int) -> dict:
+    return {"wall_s": wall, "pairs_per_s": n_pairs / wall,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def same_rows(got: dict, want: dict, what: str, tol: float = 1e-3) -> float:
+    """Equal rows and counts, ANI within ``tol``; returns the largest ANI
+    difference."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: rows differ ({len(got)} vs "
+                             f"{len(want)})")
+    dev_max = 0.0
+    for k, r in want.items():
+        if got[k][1:] != r[1:]:
+            raise AssertionError(f"{what}: counts differ at {k}")
+        dev_max = max(dev_max, abs(float(got[k][0]) - float(r[0])))
+    if dev_max > tol:
+        raise AssertionError(f"{what}: ANI off by {dev_max}")
+    return dev_max
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_mesh(torch, np, n_genomes: int, golden: pathlib.Path):
+    """Phase 3e; returns the kernels' launches on mid through ``--mesh
+    2x2`` (the fast path), counted from 0 just before that run, and
+    ``check_sites``'s result on that run's call sites."""
+    from fastani_tpu_torch.models import pipeline
+    from fastani_tpu_torch.ops import cuda as kc
+
+    wd = WORK / "mid"
+    lst = str(wd / "genomes.txt")
+    n_pairs = n_genomes * n_genomes
+    mid = ["--ql", lst, "--rl", lst, "--matrix", "--mesh", "2x2"]
+
+    # mid, fast path, 2 reference shards x 2 batch slices on one card
+    stats = {}
+    kc.reset_launches()
+    with kernel_sites(torch, kc.KERNELS, shapes_per_site=3) as seen:
+        wall = timed_cli(torch, mid + ["-o", str(wd / "mesh.txt")], stats)
+    launches = dict(kc.LAUNCHES)
+    dev = same_rows(tsv_rows(wd / "mesh.txt"), tsv_rows(wd / "mid.txt"),
+                    "mesh fast")
+    emit({"phase": "mesh_fast", "mesh": "2x2", "pairs": n_pairs,
+          **run_metrics(torch, wall, n_pairs),
+          "t_index_build_s": stats["t_index_build"],
+          "t_map_fold_s": stats["t_map_fold"], "batches": stats["batches"],
+          "fallback_frags": stats["fallback_frags"],
+          "max_hits": stats["max_hits"], "launches": launches,
+          "max_ani_diff_vs_single": dev})
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"mesh: kernels not launched: {missing}")
+    # every kernel at the mesh's own call sites and shapes (B_local rows,
+    # the shards' caps and index builds) against its plain version
+    mesh_sites = check_sites(torch, "mesh 2x2", seen, launches)
+    del seen
+
+    # mid, exact path: byte-equal to phase 3c's TSV and .matrix
+    stats = {}
+    out = wd / "mesh_exact.txt"
+    wall = timed_cli(torch, mid + ["-o", str(out), "--exact"], stats)
+    same = [(wd / ("mid_exact.txt" + suf)).read_bytes()
+            == pathlib.Path(f"{out}{suf}").read_bytes()
+            for suf in ("", ".matrix")]
+    emit({"phase": "mesh_exact", "mesh": "2x2", "pairs": n_pairs,
+          **run_metrics(torch, wall, n_pairs), "t_map_s": stats["t_map"],
+          "t_fold_s": stats["t_fold"], "fallback_frags":
+          stats["fallback_frags"], "byte_equal_tsv_matrix": same})
+    if not all(same):
+        raise AssertionError("mesh exact: files differ from phase 3c's")
+
+    cwd = os.getcwd()
+    os.chdir(golden)
+    try:
+        # the goldens, every exact output, byte-equal to phase 2's
+        q2 = ["-q", "multi.fa", "--rl", "refs.txt"]
+        wall = timed_cli(torch, q2 + ["-o", "mx_g2.txt", "--mesh", "2x2",
+                                      "--exact", "--visualize", "-s",
+                                      "--matrix"])
+        same = [pathlib.Path("x_g2.txt" + suf).read_bytes()
+                == pathlib.Path("mx_g2.txt" + suf).read_bytes()
+                for suf in ("", ".matrix", ".visual")]
+        emit({"phase": "mesh_golden_exact", "mesh": "2x2",
+              **run_metrics(torch, wall, 2), "byte_equal": same})
+        if not all(same):
+            raise AssertionError("mesh golden exact: files differ")
+
+        # --saveIndex, then --loadIndex without --rl: the fresh run's TSV
+        # (the exact path's bytes; the fast path's rows and counts, ANI
+        # within 1e-3: its device fold adds float32 identities with
+        # atomics, so two card runs may differ in the last printed digit)
+        persist = {}
+        for tag, extra, idx in (("single", [], "ix.npz"),
+                                ("mesh", ["--mesh", "2x2"], "ixm")):
+            for path in ("fast", "exact"):
+                flag = ["--exact"] if path == "exact" else []
+                fresh, loaded = f"s_{tag}_{path}.txt", f"l_{tag}_{path}.txt"
+                wall_s = timed_cli(torch, q2 + extra + flag + [
+                    "-o", fresh, "--saveIndex", idx])
+                wall_l = timed_cli(torch, ["-q", "multi.fa", "--loadIndex",
+                                           idx, "-o", loaded] + extra + flag)
+                same = pathlib.Path(fresh).read_bytes() == \
+                    pathlib.Path(loaded).read_bytes()
+                persist[f"{tag}_{path}"] = {
+                    "save_wall_s": wall_s, "load_wall_s": wall_l,
+                    "load_pairs_per_s": 2 / wall_l,
+                    "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                    "byte_equal": same,
+                    "max_ani_diff": same_rows(tsv_rows(loaded),
+                                              tsv_rows(fresh),
+                                              f"--loadIndex {tag} {path}")}
+                if path == "exact" and not same:
+                    raise AssertionError(f"--loadIndex {tag}: the exact "
+                                         f"TSV differs from the fresh run")
+        emit({"phase": "mesh_persist", **persist})
+
+        # one process over NCCL (a process of its own: the group is
+        # created and destroyed there) against the single-device fast path
+        t0 = time.time()
+        res = subprocess.run(
+            [sys.executable, "-m", "fastani_tpu_torch.cli"] + q2
+            + ["-o", "nccl.txt", "--coordinator",
+               f"127.0.0.1:{free_port()}", "--nprocs", "1", "--procid", "0",
+               "--device", "cuda"],
+            capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=str(ROOT)))
+        wall = time.time() - t0
+        backend = [ln for ln in res.stderr.splitlines() if "backend" in ln]
+        if res.returncode != 0:
+            raise AssertionError(f"NCCL run failed: {res.stderr[-2000:]}")
+        emit({"phase": "mesh_nccl", "rc": res.returncode,
+              "wall_s": wall, "pairs_per_s": 2 / wall,
+              "peak_mem_bytes": "not measured (another process)",
+              "log": backend,
+              "byte_equal_single": pathlib.Path("nccl.txt").read_bytes()
+              == pathlib.Path("g2.txt").read_bytes(),
+              "max_ani_diff_vs_single": same_rows(
+                  tsv_rows("nccl.txt"), tsv_rows("g2.txt"), "NCCL run")})
+        if not backend or "backend nccl" not in backend[0]:
+            raise AssertionError(f"NCCL run: wrong backend: {backend}")
+    finally:
+        os.chdir(cwd)
+
+    # the auto-tune where it engages: 40 genomes (static hits_cap 10240)
+    aw = WORK / "autotune"
+    aw.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    paths = build_workload(np, aw, 40, 1_000_000)
+    (aw / "g.txt").write_text("\n".join(paths) + "\n")
+    gen_s = time.time() - t0
+    args = ["--ql", str(aw / "g.txt"), "--rl", str(aw / "g.txt")]
+    tuned, static = {}, {}
+    kc.reset_launches()
+    with kernel_sites(torch, kc.KERNELS, shapes_per_site=3) as seen:
+        wall_t = timed_cli(torch, args + ["-o", str(aw / "tuned.txt")],
+                           tuned)
+    metrics_t = run_metrics(torch, wall_t, 1600)
+    # K1-K3 under Mapper.probe_hits, and every kernel at the tuned width
+    tune_sites = check_sites(torch, "autotune", seen, dict(kc.LAUNCHES))
+    del seen
+    probed = {k for k, v in tune_sites.items()
+              if any(s.startswith("probe ") for s in v["sites"])}
+    if probed != {"winnow", "compact", "sort"}:
+        raise AssertionError(f"autotune: probe_hits launched {probed}")
+    orig = pipeline.autotune_hits_cap
+    pipeline.autotune_hits_cap = lambda mapper, stream, params: mapper
+    try:
+        wall_s = timed_cli(torch, args + ["-o", str(aw / "static.txt")],
+                           static)
+    finally:
+        pipeline.autotune_hits_cap = orig
+    same = (aw / "tuned.txt").read_bytes() == (aw / "static.txt").read_bytes()
+    ani_diff = same_rows(tsv_rows(aw / "tuned.txt"),
+                         tsv_rows(aw / "static.txt"), "autotune")
+    emit({"phase": "autotune", "genomes": 40, "genome_bp": 1_000_000,
+          "gen_s": gen_s, "hits_cap_static": tuned["hits_cap_static"],
+          "hits_cap_tuned": tuned["hits_cap"], "max_hits": tuned["max_hits"],
+          "fallback_frags": tuned["fallback_frags"],
+          "tuned": {**metrics_t, "t_map_fold_s": tuned["t_map_fold"]},
+          "static": {**run_metrics(torch, wall_s, 1600),
+                     "t_map_fold_s": static["t_map_fold"],
+                     "hits_cap": static["hits_cap"]},
+          "byte_equal": same, "max_ani_diff_vs_static": ani_diff})
+    shutil.rmtree(aw, ignore_errors=True)
+    if not tuned["hits_cap"] < tuned["hits_cap_static"] == 10240:
+        raise AssertionError("autotune: hits_cap did not shrink below 10240")
+    return launches, mesh_sites
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path at a real size
 # ---------------------------------------------------------------------------
 
@@ -911,6 +1269,7 @@ def main() -> int:
     run_redo(torch, golden_dir)
     launches_exact = run_exact_mid(torch, N_GENOMES)
     run_sanity_and_oracle(torch, np, golden_dir)
+    launches_mesh, mesh_sites = run_mesh(torch, np, N_GENOMES, golden_dir)
     kernels = check_kernels(torch, np, paths, batches, launches)
 
     table = []
@@ -919,7 +1278,10 @@ def main() -> int:
         table.append({"name": name, "route": "cuda", "source": SOURCE[name],
                       "replaces": REPLACES[name], "launches": launches[name],
                       "launches_exact": launches_exact[name],
-                      "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                      "launches_mesh": launches_mesh[name],
+                      "max_abs_err": r["max_abs_err"],
+                      "max_abs_err_mesh": mesh_sites[name]["max_abs_err"],
+                      "ms": r["kernel_ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],
                       "library_ms": r["library_ms"]})

@@ -4,12 +4,18 @@
     python -m fastani_tpu_torch.cli -q genome1.fa -r genome2.fa -o out.txt
     python -m fastani_tpu_torch.cli --ql queries.txt --rl refs.txt -o out.txt --matrix
     python -m fastani_tpu_torch.cli -q a.fa -r b.fa -o out.txt --exact --visualize
+    python -m fastani_tpu_torch.cli -q a.fa -r b.fa -o out.txt --saveIndex ref.npz
+    python -m fastani_tpu_torch.cli -q a.fa --loadIndex ref.npz -o out.txt
+    python -m fastani_tpu_torch.cli --ql q.txt --rl r.txt -o out.txt --mesh 2x2
 
 It runs on ``--device`` (default ``cuda``) the fast path
 (``models.pipeline.run_fast``), or, with ``--exact``, ``--visualize`` or
 ``-s``, the exact path (``models.pipeline.run``: the host fold, whose TSV
 and ``.matrix`` are byte-equal to the reference's, the ``.visual`` file
-and the repeat sanity check).
+and the repeat sanity check).  With ``--mesh`` or ``--coordinator`` the
+same paths run sharded (``parallel.runner``): ``run_sharded_fused`` and
+``run_sharded``; every process of a run over several runs this CLI with
+its ``--procid``.
 """
 
 from __future__ import annotations
@@ -88,6 +94,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on [cuda]; 'cpu' runs the plain "
                         "PyTorch versions of the kernels")
+    p.add_argument("--saveIndex", dest="saveIndex", default="",
+                   help="persist the built reference index to this .npz "
+                        "(with --mesh: one file per shard, "
+                        "PREFIX.rRofN.npz)")
+    p.add_argument("--loadIndex", dest="loadIndex", default="",
+                   help="restore a persisted reference index instead of "
+                        "sketching (the reference file list comes from the "
+                        "index, so -r is optional)")
+    p.add_argument("--mesh", default="",
+                   help="run sharded on an RxQ grid, e.g. --mesh 2x4 (R "
+                        "reference shards x Q slices of each fragment "
+                        "batch); 'auto' factors torch.cuda.device_count() "
+                        "(1x1 on cpu).  One process runs every cell on its "
+                        "device; output equals the single-device run's")
+    p.add_argument("--coordinator", default="",
+                   help="address host:port of a run over several processes "
+                        "(torch.distributed; NCCL on cuda, gloo on cpu); "
+                        "every process runs this CLI")
+    p.add_argument("--nprocs", type=int, default=0,
+                   help="number of processes of the run")
+    p.add_argument("--procid", type=int, default=-1,
+                   help="this process's id (0-based)")
     return p
 
 
@@ -98,7 +126,7 @@ def main(argv=None, stats: Optional[dict] = None) -> int:
     if args.version:
         print(f"fastani_tpu_torch {__version__}")
         return 0
-    if not args.ref and not args.refList:
+    if not args.ref and not args.refList and not args.loadIndex:
         print("Provide reference file(s)", file=sys.stderr)
         return 1
     if not args.query and not args.queryList:
@@ -116,17 +144,34 @@ def main(argv=None, stats: Optional[dict] = None) -> int:
         matrix_output=args.matrix,
         sanity_check=args.sanityCheck,
         out_file_name=args.output,
-        ref_sequences=[args.ref] if args.ref else parse_file_list(args.refList),
+        save_index=args.saveIndex,
+        load_index=args.loadIndex,
+        ref_sequences=([args.ref] if args.ref
+                       else parse_file_list(args.refList) if args.refList
+                       else []),
         query_sequences=([args.query] if args.query
                          else parse_file_list(args.queryList)),
     )
     validate_input_files(list(params.query_sequences)
                          + list(params.ref_sequences))
-    from fastani_tpu_torch.models import pipeline
 
     # the .visual rows and the sanity ratios come from the exact path only
     # (reference: one binary covers all modes, parseCmdArgs.hpp:114-234)
     exact = args.exact or args.visualize or args.sanityCheck
+    if args.mesh or args.coordinator:
+        from fastani_tpu_torch.parallel import runner
+
+        n_r = n_q = None
+        if args.mesh and args.mesh != "auto":
+            n_r, n_q = (int(x) for x in args.mesh.lower().split("x"))
+        run = runner.run_sharded if exact else runner.run_sharded_fused
+        run(params, n_r, n_q, coordinator=args.coordinator or None,
+            num_processes=args.nprocs or None,
+            process_id=args.procid if args.procid >= 0 else None,
+            device=args.device, stats=stats)
+        return 0
+    from fastani_tpu_torch.models import pipeline
+
     run = pipeline.run if exact else pipeline.run_fast
     run(params, device=args.device, stats=stats)
     return 0

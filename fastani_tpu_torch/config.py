@@ -38,6 +38,9 @@ class Parameters:
     matrix_output: bool = False
     max_ratio_diff: float = 100.0
     sanity_check: bool = False
+    # index persistence (the JAX package's .npz format, version 1)
+    save_index: str = ""                 # write the built index here
+    load_index: str = ""                 # skip the build, restore from here
 
     # capacity caps of the fixed-width buffers; a query genome that owns a
     # fragment over one is redone exactly with caps sized to its data

@@ -14,7 +14,8 @@ Arrays may be padded past ``n_entries`` (hash UMAX, seqId/wpos 2^30), as
 the device build leaves them.  Hashes are int64 tensors holding u32.
 ``host_view`` reads the true entries back once, as numpy, for the scalar
 oracle (``utils/refmodel.py``); ``sanity_check`` is the repeat check of
-``-s`` (winSketch.hpp:298-318).
+``-s`` (winSketch.hpp:298-318); ``save``/``load`` persist the index in the
+JAX package's ``.npz`` format (``--saveIndex``/``--loadIndex``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ import numpy as np
 import torch
 
 from fastani_tpu_torch.config import Parameters
+
+SAVE_VERSION = 1          # the .npz layout both packages read and write
 
 
 @dataclasses.dataclass
@@ -142,6 +145,71 @@ class ReferenceIndex:
 
         return device_build.build_device(cls, params, ref_files,
                                          resolve_device(device))
+
+    def save(self, path: str, params: Parameters) -> None:
+        """Write the true entries to ``path`` in the JAX package's ``.npz``
+        format (``ReferenceIndex.save``, version 1): the build order with
+        uint32 hashes, each contig's first entry (``seq_start``), contig
+        names and lengths, file boundaries, and from ``params`` (the run
+        that built the index) the reference files, k, w and the fragment
+        length; then the frequency threshold.  Either package loads what the
+        other saved.  The file is written at ``path`` itself (numpy would
+        append ``.npz`` to a bare name)."""
+        p, h = params, self.host_view()
+        seq_start = np.searchsorted(h.mi_seqid,
+                                    np.arange(len(self.metadata) + 1))
+        with open(path, "wb") as f:
+            np.savez_compressed(
+                f, version=np.int64(SAVE_VERSION),
+                kmer_size=np.int64(p.kmer_size),
+                window_size=np.int64(p.window_size),
+                frag_len=np.int64(p.frag_len),
+                contig_names=np.array([c.name for c in self.metadata]),
+                contig_lengths=np.array([c.length for c in self.metadata],
+                                        np.int64),
+                sequences_by_file=np.asarray(self.sequences_by_file,
+                                             np.int32),
+                ref_files=np.array(list(p.ref_sequences)),
+                mi_hash=h.mi_hash.astype(np.uint32),
+                mi_seqid=h.mi_seqid.astype(np.int32),
+                mi_wpos=h.mi_wpos.astype(np.int32),
+                seq_start=seq_start.astype(np.int64),
+                freq_threshold=np.int64(self.freq_threshold))
+
+    @classmethod
+    def load(cls, path: str, params: Parameters,
+             device="cuda") -> "ReferenceIndex":
+        """An index saved by either package, on ``device`` (``cuda``
+        unless the caller asks for ``cpu``; raises without a card).  The
+        file's k, w and fragment length must be the run's (a ``ValueError``
+        names the field that differs); ``params.ref_sequences`` becomes the
+        file's reference list.  The lookup order is rebuilt by a stable sort
+        by hash."""
+        from fastani_tpu_torch.ops.cuda import resolve_device
+
+        dev = resolve_device(device)
+        params.finalize()
+        with np.load(path, allow_pickle=False) as z:
+            if int(z["version"]) != SAVE_VERSION:
+                raise ValueError(f"unsupported index version "
+                                 f"{int(z['version'])}")
+            for field in ("kmer_size", "window_size", "frag_len"):
+                have, want = int(z[field]), int(getattr(params, field))
+                if have != want:
+                    raise ValueError(f"index was built with {field}={have}, "
+                                     f"run requests {want}")
+            metadata = [ContigInfo(str(n), int(l)) for n, l in
+                        zip(z["contig_names"], z["contig_lengths"])]
+            params.ref_sequences = [str(f) for f in z["ref_files"]]
+            mi_hash = z["mi_hash"].astype(np.int64)
+            mi_seqid, mi_wpos = z["mi_seqid"], z["mi_wpos"]
+            order = np.argsort(mi_hash, kind="stable")
+            arrays = dict(mi_hash=mi_hash, mi_seqid=mi_seqid, mi_wpos=mi_wpos,
+                          occ_hash=mi_hash[order], occ_seqid=mi_seqid[order],
+                          occ_wpos=mi_wpos[order], occ_order=order,
+                          sequences_by_file=z["sequences_by_file"])
+            freq_threshold = int(z["freq_threshold"])
+        return cls.from_numpy(arrays, metadata, dev, freq_threshold)
 
     @classmethod
     def from_numpy(cls, arrays: dict, metadata, device,

@@ -7,7 +7,9 @@ The fast path for cgi::computeCGI (src/cgi/include/computeCoreIdentity.hpp:
 (query slot, global reference position bin) after an exact per-batch
 1-way dedupe (a fragment's rows all live in one batch) — the 2-way law of
 :237-255.  A query genome's slot is folded into the (Gq, Gr) accumulators
-once its last batch has passed, and the slot is reused.  Identities come
+once its last batch has passed, and the slot is reused; on a mesh the
+slot's row is first merged over the q cells (``StreamingCGI.finalize_list``).
+Identities come
 from a float32 LUT over (sketch size, shared count), so each row's
 identity equals the host path's; the per-pair sums are float32 reductions
 in another order, so they may differ from the JAX package in the last
@@ -89,16 +91,18 @@ def update_tab(tab, packed, n_valid: int, genome_of_seq, bin_start,
 
 
 def finalize_rows(tab, acc_counts, acc_sums, fin_qnos: torch.Tensor,
-                  gid_of_bin, n_slots: int, n_rg: int):
+                  gid_of_bin, n_slots: int, n_rg: int, rows=None):
     """Fold the table rows of the listed query genomes into the (Gq, Gr)
     accumulators and clear their slots, in place.  ``fin_qnos`` (FIN,)
-    lists query genomes whose last fragment has been folded."""
+    lists query genomes whose last fragment has been folded; ``rows``
+    (FIN, B_tot), when given, is folded in place of their slots' rows."""
     FIN = fin_qnos.shape[0]
     if not FIN:
         return tab, acc_counts, acc_sums
     dev = tab.device
     slots = fin_qnos % n_slots
-    rows = tab[slots]                                   # (FIN, B_tot)
+    if rows is None:
+        rows = tab[slots]                               # (FIN, B_tot)
     occ = rows >= 0
     ident = torch.where(occ, rows.view(torch.float32), 0.0)
     seg = torch.where(occ, gid_of_bin[None, :].long(), n_rg)
@@ -149,11 +153,34 @@ class StreamingCGI:
                    self._lut, self.frag_len, self.n_slots, self.n_rg,
                    self.frag_cap)
 
-    def finalize_list(self, qnos: Sequence[int]) -> None:
+    def finalize_list(self, qnos: Sequence[int], peers=(),
+                      reduce_max=None) -> None:
+        """Close the listed query genomes: fold their slots' bin rows into
+        this accumulator and clear the slots.
+
+        On a mesh, a query genome's fragments are split over the q cells of
+        each reference shard, so a bin's best identity may sit in another
+        cell's table.  Each row is first merged (the q-merge, the JAX
+        package's ``finalize_rows(q_axis="q")``): the elementwise max over
+        this table and those of ``peers``, the other cells of the shard
+        that this process runs (their slots are cleared, they fold
+        nothing), then ``reduce_max``, which replaces a tensor in place by
+        its max over the processes that run the shard's other cells.  The
+        tables hold non-negative float32 bits or -1, so the max of the
+        int32 words is the max of the identities."""
         fin = torch.as_tensor(np.asarray(list(qnos), np.int64),
                               device=self._tab.device)
+        rows = None
+        if peers or reduce_max is not None:
+            slots = fin % self.n_slots
+            rows = self._tab[slots]
+            for p in peers:
+                rows = torch.maximum(rows, p._tab[slots])
+                p._tab[slots] = -1
+            if reduce_max is not None:
+                reduce_max(rows)
         finalize_rows(self._tab, self._counts, self._sums, fin,
-                      self._gid_of_bin, self.n_slots, self.n_rg)
+                      self._gid_of_bin, self.n_slots, self.n_rg, rows=rows)
 
     def result(self):
         return self._counts.cpu().numpy(), self._sums.cpu().numpy()

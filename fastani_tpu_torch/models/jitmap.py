@@ -296,3 +296,17 @@ class Mapper:
                   row_valid=None) -> dict:
         return map_step_packed(self.cfg, frags, self.tables, qno_row,
                                qsid_row, row_valid)
+
+    def probe_hits(self, frags: torch.Tensor) -> torch.Tensor:
+        """The L1 hit totals of one batch without the map step (the JAX
+        package's ``JitMapper.probe_fn``): the sketch (K1, K2, K3) and the
+        hash probes only.  Returns an int64 (2,) tensor [max per-fragment
+        hit total, batch hit sum]; hashes at or above the frequency
+        threshold count 0, as in L1."""
+        cfg, t = self.cfg, self.tables
+        qh, s, _ = mapping.sketch_fragments(frags, cfg.kmer_size,
+                                            cfg.window_size, cfg.sketch_cap)
+        _, cnt = mapping.l1_ranges(qh, s, t.occ_hash, t.n_occ,
+                                   cfg.freq_threshold)
+        tot = cnt.sum(dim=-1)
+        return torch.stack([tot.max(), tot.sum()])

@@ -101,20 +101,27 @@ def hit_keys(sid: torch.Tensor, wpos: torch.Tensor, n: int,
     return u32_as_i32(torch.where(live, keys, UMAX))
 
 
+def l1_ranges(qh, s, occ_hash, n_occ: int, freq_threshold: int):
+    """The L1 hash probes (computeMap.hpp:286-318): each sketch hash's
+    occurrence range [lo, lo + cnt) in the lookup order, cnt 0 past the
+    sketch size and for hashes at or above ``freq_threshold``."""
+    qvalid = torch.arange(qh.shape[1], device=qh.device)[None, :] < s[:, None]
+    lo = torch.searchsorted(occ_hash, qh).clamp(max=n_occ)
+    hi = torch.searchsorted(occ_hash, qh, right=True).clamp(max=n_occ)
+    cnt = torch.where(qvalid, hi - lo, 0).clamp(min=0)
+    return lo, torch.where(cnt < freq_threshold, cnt, 0)
+
+
 def l1_candidates(qh, s, occ_hash, occ_keys, n_occ: int, min_hits_lut,
                   freq_threshold: int, frag_len: int, hits_cap: int,
                   cand_cap: int, wpos_bits: Optional[int]) -> L1Result:
     """Batched L1 stage.  qh (F, scap) sorted unique hashes (UMAX padded);
     occ_hash/occ_keys the lookup-order hashes and hit keys in the layout of
     ``hit_key_layout(wpos_bits)`` (pads past the n_occ true entries)."""
-    F, scap = qh.shape
+    F = qh.shape[0]
     dev = qh.device
     M = occ_hash.shape[0]
-    qvalid = torch.arange(scap, device=dev)[None, :] < s[:, None]
-    lo = torch.searchsorted(occ_hash, qh).clamp(max=n_occ)
-    hi = torch.searchsorted(occ_hash, qh, right=True).clamp(max=n_occ)
-    cnt = torch.where(qvalid, hi - lo, 0).clamp(min=0)
-    cnt = torch.where(cnt < freq_threshold, cnt, 0)
+    lo, cnt = l1_ranges(qh, s, occ_hash, n_occ, freq_threshold)
     cum = torch.cumsum(cnt, dim=-1)
     total = cum[:, -1]
     overflow = total > hits_cap

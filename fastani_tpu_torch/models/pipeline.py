@@ -21,6 +21,15 @@ width limit, by the scalar oracle.  ``run_fast`` does so for the whole
 query genome that owns it (``_redo_query_exact``: the device CGI already
 folded the genome's other fragments), ``run`` for the batch's overflowed
 fragments.
+
+Both paths take their index from ``reference_index``: built on the
+device, or restored with ``--loadIndex`` (which also sets the reference
+list, so it comes before anything counts the reference genomes), and
+saved with ``--saveIndex``.  ``run_fast`` shrinks hits_cap to the
+workload before its loop (``autotune_hits_cap``).  The multi-device runner
+(``parallel/runner.py``) reuses the pieces: ``tuned_mapper``,
+``map_batch_cgi``, ``redo_queries``, ``map_batch_rows``,
+``rows_by_query``, ``fold_queries`` and ``write_results``.
 """
 
 from __future__ import annotations
@@ -165,16 +174,18 @@ def _note_batch(stats: dict, counts: Dict[str, int]) -> None:
 
 def _redo_query_exact(qno: int, stream: FragmentStream,
                       params: Parameters, mapper: "jitmap.Mapper",
-                      genome_of_seq: np.ndarray, stats: dict):
+                      genome_of_seq: np.ndarray, stats: dict,
+                      batch: Optional[int] = None):
     """Exact (counts, sums) of one query genome a fragment of which
     overflowed a cap (the JAX package's ``_redo_query_exact``).  The 2-way
     dedupe couples a genome's fragments, so all of them are mapped again,
-    batch by batch, by ``glue.map_fallback_batch``, and folded on the host
-    (``ani.compute_cgi_arrays``).  Returns ({ref genome: (count, sum)},
-    the mapper whose caps held the last batch)."""
+    in batches of ``batch`` rows (default ``params.frag_batch``: the rows
+    the mapper's caps were sized for), by ``glue.map_fallback_batch``, and
+    folded on the host (``ani.compute_cgi_arrays``).  Returns ({ref genome:
+    (count, sum)}, the mapper whose caps held the last batch)."""
     frags = stream.get_query(qno).frags
     dev = mapper.index.device
-    B = params.frag_batch
+    B = batch or params.frag_batch
     parts = []
     for b0 in range(0, len(frags), B):
         rows, mapper = glue.map_fallback_batch(
@@ -199,7 +210,6 @@ def map_queries_cgi_device(stream: FragmentStream, index: ReferenceIndex,
     (counts, sums) on the device; one plain loop over batches, then the
     exact redo of each query genome that owns an overflowed fragment.
     Returns host (counts (Gq, Gr) int32, sums (Gq, Gr) float32)."""
-    dev = index.device
     B = params.frag_batch
     stats = {} if stats is None else stats
     stats.setdefault("fallback_frags", 0)
@@ -212,33 +222,101 @@ def map_queries_cgi_device(stream: FragmentStream, index: ReferenceIndex,
     for i, b0 in enumerate(starts):
         if fins[i]:
             cgi.finalize_list(fins[i])
-        frags, qno_row, gid_row = stream.make_batch(b0, B)
-        as_t = lambda a: torch.as_tensor(a, device=dev)
-        out = mapper.map_batch(as_t(frags), as_t(qno_row), as_t(gid_row))
-        counts = dict(zip(jitmap.COUNT_NAMES, out["counts"].tolist()))
-        _note_batch(stats, counts)
-        if jitmap.overflowed(counts):
-            fb_rows = np.nonzero(out["fallback_mask"].cpu().numpy())[0]
-            stats["fallback_frags"] += len(fb_rows)
-            redo.update(qno_row[fb_rows].tolist())
-        cgi.update(out["packed"], counts["n_valid"])
+        map_batch_cgi(*stream.make_batch(b0, B), mapper, cgi, stats, redo)
         stream.evict_up_to(stream.qno_of_row(b0))
     if tail:
         cgi.finalize_list(tail)
     counts, sums = cgi.result()
-    # the device CGI left the overflowed fragments out; each genome that
-    # owns one gets its row replaced by the exact redo's
-    genome_of_seq = index.genome_of_seq()
-    for qno in sorted(redo):
+    redo_queries(counts, sums, sorted(redo), stream, params, mapper,
+                 index.genome_of_seq(), stats)
+    stats["redone_queries"] = len(redo)
+    return counts, sums
+
+
+def map_batch_cgi(frags: np.ndarray, qno_row: np.ndarray,
+                  gid_row: np.ndarray, mapper: "jitmap.Mapper",
+                  cgi: device_cgi.StreamingCGI, stats: dict,
+                  redo: set) -> None:
+    """Map one batch and fold its rows into ``cgi``; the query genomes
+    that own an overflowed fragment (which the device CGI leaves out) go
+    into ``redo``."""
+    as_t = lambda a: torch.as_tensor(a, device=mapper.index.device)
+    out = mapper.map_batch(as_t(frags), as_t(qno_row), as_t(gid_row))
+    counts = dict(zip(jitmap.COUNT_NAMES, out["counts"].tolist()))
+    _note_batch(stats, counts)
+    if jitmap.overflowed(counts):
+        fb_rows = np.nonzero(out["fallback_mask"].cpu().numpy())[0]
+        stats["fallback_frags"] += len(fb_rows)
+        redo.update(qno_row[fb_rows].tolist())
+    cgi.update(out["packed"], counts["n_valid"])
+
+
+def redo_queries(counts: np.ndarray, sums: np.ndarray, qnos, stream,
+                 params: Parameters, mapper: "jitmap.Mapper",
+                 genome_of_seq: np.ndarray, stats: dict,
+                 batch: Optional[int] = None) -> "jitmap.Mapper":
+    """Replace the (counts, sums) rows of query genomes ``qnos`` by the
+    exact redo's (``_redo_query_exact``), in place; returns the mapper
+    whose caps held the last batch."""
+    for qno in qnos:
         row, mapper = _redo_query_exact(qno, stream, params, mapper,
-                                        genome_of_seq, stats)
+                                        genome_of_seq, stats, batch)
         counts[qno, :] = 0
         sums[qno, :] = 0.0
         for g, (c, sm) in row.items():
             counts[qno, g] = c
             sums[qno, g] = sm
-    stats["redone_queries"] = len(redo)
-    return counts, sums
+    return mapper
+
+
+def map_batch_rows(frags: np.ndarray, qno_row: np.ndarray,
+                   gid_row: np.ndarray, mapper: "jitmap.Mapper",
+                   fb_mapper: "jitmap.Mapper", params: Parameters,
+                   stats: dict):
+    """One batch's valid rows, read back for the host fold.  Its
+    overflowed fragments are mapped again by ``glue.map_fallback_batch``
+    with ``fb_mapper`` (the fallback mask is read only when the counts say
+    something overflowed).  Returns (row columns (qno, qsid, sid, start,
+    ident) per part, the mapper whose caps held the fallback).
+    ``stats["t_rows"]`` sums the host's reads of the rows and their
+    identities."""
+    as_t = lambda a: torch.as_tensor(a, device=mapper.index.device)
+    f = as_t(frags)
+    out = mapper.map_batch(f, as_t(qno_row), as_t(gid_row))
+    counts = dict(zip(jitmap.COUNT_NAMES, out["counts"].tolist()))
+    _note_batch(stats, counts)
+    t0 = time.time()
+    _, qno, qsid, sid, shared, sketch, pos = (
+        out["packed"][:, :counts["n_valid"]].cpu().numpy())
+    ident, _ = identities_for(shared, sketch, params.kmer_size)
+    parts = [(qno, qsid, sid, pos, ident)]
+    stats["t_rows"] = stats.get("t_rows", 0) + time.time() - t0
+    if jitmap.overflowed(counts):
+        fb = np.nonzero(out["fallback_mask"].cpu().numpy())[0]
+        stats["fallback_frags"] = stats.get("fallback_frags", 0) + len(fb)
+        rows, fb_mapper = glue.map_fallback_batch(
+            f[as_t(fb)], fb_mapper, params, stats)
+        r = fb[rows["frag"]]
+        parts.append((qno_row[r], gid_row[r], rows["sid"],
+                      rows["mean_pos"], rows["ident"]))
+    return parts, fb_mapper
+
+
+def rows_by_query(parts, n_queries: int) -> List[dict]:
+    """Row columns (qno, qsid, sid, start, ident), in parts of any order,
+    as one column dict per query genome: ``query_seq_id``,
+    ``ref_seq_id``, ``ref_start_pos`` (int64) and ``ident`` (float32)."""
+    qno, qsid, sid, start, ident = (
+        np.concatenate([p[i] for p in parts]).astype(dt) if parts
+        else np.zeros(0, dt)
+        for i, dt in enumerate((np.int64, np.int64, np.int64, np.int64,
+                                np.float32)))
+    order = np.argsort(qno, kind="stable")
+    bounds = np.searchsorted(qno[order], np.arange(n_queries + 1))
+    return [dict(query_seq_id=qsid[sel], ref_seq_id=sid[sel],
+                 ref_start_pos=start[sel], ident=ident[sel])
+            for sel in (order[lo:hi] for lo, hi in zip(bounds[:-1],
+                                                        bounds[1:]))]
 
 
 def map_queries_batched(stream: FragmentStream, index: ReferenceIndex,
@@ -246,52 +324,20 @@ def map_queries_batched(stream: FragmentStream, index: ReferenceIndex,
                         stats: Optional[dict] = None) -> List[dict]:
     """Map every query fragment in shared batches and read each batch's
     valid rows back for the host fold (the JAX package's
-    ``map_queries_batched``).  A batch's overflowed fragments are mapped
-    again by ``glue.map_fallback_batch`` (its fallback mask is read only
-    when the counts say something overflowed).  Returns one column dict
-    per query genome: ``query_seq_id``, ``ref_seq_id``, ``ref_start_pos``
-    (int64) and ``ident`` (float32).  ``stats["t_rows"]`` sums the host's
-    reads of the rows and their identities."""
-    dev = index.device
-    B = params.frag_batch
+    ``map_queries_batched``; ``map_batch_rows`` per batch).  Returns
+    ``rows_by_query``'s column dict per query genome."""
     stats = {} if stats is None else stats
     for key in ("fallback_frags", "oracle_frags", "t_rows"):
         stats.setdefault(key, 0)
-    as_t = lambda a: torch.as_tensor(a, device=dev)
-    parts = []                 # per batch: (qno, qsid, sid, start, ident)
+    parts = []
     fb_mapper = mapper
-    for b0 in range(0, stream.F, B):
-        frags, qno_row, gid_row = stream.make_batch(b0, B)
-        f = as_t(frags)
-        out = mapper.map_batch(f, as_t(qno_row), as_t(gid_row))
-        counts = dict(zip(jitmap.COUNT_NAMES, out["counts"].tolist()))
-        _note_batch(stats, counts)
-        t0 = time.time()
-        _, qno, qsid, sid, shared, sketch, pos = (
-            out["packed"][:, :counts["n_valid"]].cpu().numpy())
-        ident, _ = identities_for(shared, sketch, params.kmer_size)
-        parts.append((qno, qsid, sid, pos, ident))
-        stats["t_rows"] += time.time() - t0
-        if jitmap.overflowed(counts):
-            fb = np.nonzero(out["fallback_mask"].cpu().numpy())[0]
-            stats["fallback_frags"] += len(fb)
-            rows, fb_mapper = glue.map_fallback_batch(
-                f[as_t(fb)], fb_mapper, params, stats)
-            r = fb[rows["frag"]]
-            parts.append((qno_row[r], gid_row[r], rows["sid"],
-                          rows["mean_pos"], rows["ident"]))
+    for b0 in range(0, stream.F, params.frag_batch):
+        batch_parts, fb_mapper = map_batch_rows(
+            *stream.make_batch(b0, params.frag_batch), mapper, fb_mapper,
+            params, stats)
+        parts.extend(batch_parts)
         stream.evict_up_to(stream.qno_of_row(b0))
-    qno, qsid, sid, start, ident = (
-        np.concatenate([p[i] for p in parts]).astype(dt) if parts
-        else np.zeros(0, dt)
-        for i, dt in enumerate((np.int64, np.int64, np.int64, np.int64,
-                                np.float32)))
-    order = np.argsort(qno, kind="stable")
-    bounds = np.searchsorted(qno[order], np.arange(len(stream.paths) + 1))
-    return [dict(query_seq_id=qsid[sel], ref_seq_id=sid[sel],
-                 ref_start_pos=start[sel], ident=ident[sel])
-            for sel in (order[lo:hi] for lo, hi in zip(bounds[:-1],
-                                                        bounds[1:]))]
+    return rows_by_query(parts, len(stream.paths))
 
 
 def _sync(dev: torch.device) -> None:
@@ -299,16 +345,75 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _build_index(params: Parameters, dev: torch.device, stats: dict,
-                 log) -> ReferenceIndex:
+def reference_index(params: Parameters, dev: torch.device, stats: dict,
+                    log, ref_files=None, load_path: str = "",
+                    save_path: str = "") -> ReferenceIndex:
+    """The run's reference index on ``dev``: loaded from ``load_path``
+    (which sets ``params.ref_sequences`` from the file), or built from
+    ``ref_files`` (default ``params.ref_sequences``; the build checks its
+    overflow and rebuilds); then saved to ``save_path``.  Callers read the
+    reference count only after this."""
     t0 = time.time()
-    index = ReferenceIndex.build_device(params, device=dev)
+    if load_path:
+        index = ReferenceIndex.load(load_path, params, dev)
+        how = f"restored from {load_path}"
+    else:
+        index = ReferenceIndex.build_device(params, ref_files, device=dev)
+        how = "sketched"
     _sync(dev)
-    stats["t_index_build"] = time.time() - t0
-    log(f"INFO, fastani_tpu_torch, reference sketched on {dev} in "
-        f"{stats['t_index_build']:.2f}s: {index.n_entries} minimizers "
+    stats["t_index_build"] = stats.get("t_index_build", 0) + time.time() - t0
+    log(f"INFO, fastani_tpu_torch, reference {how} on {dev} in "
+        f"{time.time() - t0:.2f}s: {index.n_entries} minimizers "
         f"(window size {params.window_size})")
+    if save_path:
+        index.save(save_path, params)
+        log(f"INFO, fastani_tpu_torch, reference index saved to {save_path}")
     return index
+
+
+# the JAX package's autotune_hits_cap: batches probed, headroom over the
+# largest hit total seen
+_TUNE_SAMPLES = 12
+_TUNE_MARGIN = 1.25
+
+
+def autotune_hits_cap(mapper: "jitmap.Mapper", stream: FragmentStream,
+                      params: Parameters) -> "jitmap.Mapper":
+    """The hits_cap auto-tune (the JAX package's ``autotune_hits_cap``):
+    the largest per-fragment L1 hit total on ``_TUNE_SAMPLES`` evenly
+    spaced batches (``Mapper.probe_hits``, one read for all of them) sets
+    hits_cap to round1024(max x ``_TUNE_MARGIN``), at least 4096 and never
+    above the static cap.  Every L1 stage, K3's hit rows included, runs at
+    that width.  A no-op while hits_cap <= 8192 (up to 34 reference genomes),
+    where there is little width to win.  A fragment of a batch that was
+    not sampled and needs more goes through the exact redo, so the answer
+    does not depend on the sample.  Sets ``params.hits_cap``; returns the
+    mapper at the tuned cap (``Mapper.with_caps``)."""
+    B = params.frag_batch
+    starts = list(range(0, stream.F, B))
+    if not starts or params.hits_cap <= 8192:
+        return mapper
+    step = max(1, len(starts) // _TUNE_SAMPLES)
+    dev = mapper.index.device
+    probes = [mapper.probe_hits(torch.as_tensor(stream.make_batch(b0, B)[0],
+                                                device=dev))
+              for b0 in starts[::step][:_TUNE_SAMPLES]]
+    mx = int(torch.stack(probes)[:, 0].max())
+    params.hits_cap = min(params.hits_cap,
+                          max(4096, -(-int(mx * _TUNE_MARGIN) // 1024) * 1024))
+    return mapper.with_caps(hits_cap=params.hits_cap)
+
+
+def tuned_mapper(mapper: "jitmap.Mapper", stream: FragmentStream,
+                 params: Parameters, stats: dict, log) -> "jitmap.Mapper":
+    """``autotune_hits_cap``, logged, with the static and the tuned cap in
+    ``stats["hits_cap_static"]`` and ``stats["hits_cap"]``."""
+    stats["hits_cap_static"] = mapper.cfg.hits_cap
+    mapper = autotune_hits_cap(mapper, stream, params)
+    stats["hits_cap"] = mapper.cfg.hits_cap
+    log(f"INFO, fastani_tpu_torch, hits_cap auto-tuned to "
+        f"{stats['hits_cap']} (static {stats['hits_cap_static']})")
+    return mapper
 
 
 def _make_mapper(params: Parameters, index: ReferenceIndex) -> "jitmap.Mapper":
@@ -321,7 +426,35 @@ def _make_mapper(params: Parameters, index: ReferenceIndex) -> "jitmap.Mapper":
                          unit_chunk=min(512, params.frag_batch))
 
 
-def _write_results(final: List[ani.CGIResult], params: Parameters) -> None:
+def fold_queries(maps: List[dict], genome_of_seq: np.ndarray,
+                 ref_offsets: np.ndarray, stream: FragmentStream,
+                 params: Parameters, stats: dict) -> List[ani.CGIResult]:
+    """The host fold of each query genome's rows (``rows_by_query``'s
+    dicts) by ``ani.compute_cgi_arrays``, whose reference seqIds index
+    ``genome_of_seq`` and ``ref_offsets`` (each contig's global offset);
+    with ``params.visualize`` each genome's 2-way rows are appended to the
+    ``.visual`` file.  Returns the CGI rows; ``stats`` takes the fold's and
+    the ``.visual`` write's times (``t_fold``, ``t_visual``)."""
+    final: List[ani.CGIResult] = []
+    stats["t_fold"] = stats["t_visual"] = 0.0
+    for qno, m in enumerate(maps):
+        t0 = time.time()
+        rows, visual = ani.compute_cgi_arrays(
+            m["ref_seq_id"], m["query_seq_id"], m["ref_start_pos"],
+            m["ident"], genome_of_seq, params.frag_len, qno,
+            stream.total_fragments(qno), want_visual=params.visualize)
+        final.extend(rows)
+        t1 = time.time()
+        stats["t_fold"] += t1 - t0
+        if params.visualize and params.out_file_name:
+            output.write_visual(visual, params, qno, stream.vis_offsets(qno),
+                                ref_offsets, params.out_file_name,
+                                append=True)
+            stats["t_visual"] += time.time() - t1
+    return final
+
+
+def write_results(final: List[ani.CGIResult], params: Parameters) -> None:
     """The TSV, and the ``.matrix`` with params.matrix_output."""
     if not params.out_file_name:
         return
@@ -345,13 +478,18 @@ def run_fast(params: Parameters, device="cuda",
     dev = resolve_device(device)
     stats = {} if stats is None else stats
     params.finalize()
+    # --loadIndex sets the reference list, so the index comes before
+    # anything reads the reference count
+    index = reference_index(params, dev, stats, log,
+                            load_path=params.load_index,
+                            save_path=params.save_index)
     G = len(params.ref_sequences)
     scale_caps(G, params)
-    index = _build_index(params, dev, stats, log)
 
     t0 = time.time()
     mapper = _make_mapper(params, index)
     stream = FragmentStream(params.query_sequences, params)
+    mapper = tuned_mapper(mapper, stream, params, stats, log)
     _sync(dev)
     stats["t_mapper_init"] = time.time() - t0
 
@@ -365,7 +503,7 @@ def run_fast(params: Parameters, device="cuda",
 
     t0 = time.time()
     final = ani.results_from_matrices(counts, sums, stream.total_fragments)
-    _write_results(final, params)
+    write_results(final, params)
     stats["t_write"] = time.time() - t0
     return final
 
@@ -382,12 +520,14 @@ def run(params: Parameters, device="cuda",
     dev = resolve_device(device)
     stats = {} if stats is None else stats
     params.finalize()
+    index = reference_index(params, dev, stats, log,
+                            load_path=params.load_index,
+                            save_path=params.save_index)
     # the caps of run_fast (the JAX run keeps the defaults, which mid's
     # hits and L2 units overflow on most batches): the answer does not
     # depend on them, and at these no mid fragment falls back
     scale_caps(len(params.ref_sequences), params)
     out_path = params.out_file_name
-    index = _build_index(params, dev, stats, log)
     sane = not params.sanity_check or index.sanity_check(params.max_ratio_diff)
     if params.visualize and out_path:
         open(out_path + ".visual", "w").close()      # fresh run, then appends
@@ -405,30 +545,15 @@ def run(params: Parameters, device="cuda",
         stats["t_map"] = time.time() - t0
         log(f"INFO, fastani_tpu_torch, mapped {len(stream.paths)} queries "
             f"({stream.F} fragments) in {stats['t_map']:.2f}s")
-
-        genome_of_seq = index.genome_of_seq()
         lengths = np.array([c.length for c in index.metadata], np.int64)
-        ref_offsets = np.cumsum(lengths) - lengths
-        stats["t_fold"] = stats["t_visual"] = 0.0
-        for qno, m in enumerate(maps):
-            t0 = time.time()
-            rows, visual = ani.compute_cgi_arrays(
-                m["ref_seq_id"], m["query_seq_id"], m["ref_start_pos"],
-                m["ident"], genome_of_seq, params.frag_len, qno,
-                stream.total_fragments(qno), want_visual=params.visualize)
-            final.extend(rows)
-            t1 = time.time()
-            stats["t_fold"] += t1 - t0
-            if params.visualize and out_path:
-                output.write_visual(visual, params, qno,
-                                    stream.vis_offsets(qno), ref_offsets,
-                                    out_path, append=True)
-                stats["t_visual"] += time.time() - t1
+        final = fold_queries(maps, index.genome_of_seq(),
+                             np.cumsum(lengths) - lengths, stream, params,
+                             stats)
     else:
         log(f"ERROR :: SPLIT 0's ratio difference {index.ratio_difference} "
             f"exceeds maximum thresholds.")
 
     t0 = time.time()
-    _write_results(final, params)
+    write_results(final, params)
     stats["t_write"] = time.time() - t0
     return final

@@ -1,6 +1,7 @@
 """Card-only parity tests of the port's CUDA kernels (K1-K5) against their
-plain PyTorch versions, and of the fast and exact paths on the card against
-the same runs on the CPU.  Each test asks for the ``cuda_device`` fixture, which
+plain PyTorch versions, and of the fast and exact paths (single-device and
+on a 2x2 mesh) and index persistence on the card against the same runs on
+the CPU.  Each test asks for the ``cuda_device`` fixture, which
 skips when no NVIDIA GPU is present; run them on the card (where JAX, which
 tests/conftest.py imports, need not be installed) with
 
@@ -321,3 +322,68 @@ def test_exact_oracle_route_card_matches_cpu(cuda_device, tmp_path,
     want, st_cpu = _exact_files(q, r, "cpu", "o", l2_entry_cap=128)
     assert got == want
     assert st["oracle_frags"] == st_cpu["oracle_frags"] > 0
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["fast", "exact"])
+def test_mesh_card_matches_cpu(cuda_device, tmp_path, monkeypatch, exact):
+    """One process runs a 2x2 mesh on the card (multi.fa's 49 fragments in
+    batches of 16 split over the q cells, the references over 2 shards)
+    and on the CPU: the same rows and counts, ANI within 1e-3, on the fast
+    path; the three files byte-equal, and equal to the frozen goldens, on
+    the exact path."""
+    from fastani_tpu_torch.parallel import runner
+
+    q, r = _golden_fixtures(tmp_path, monkeypatch)
+    q = q[:1]
+
+    def run(device):
+        out = f"mesh_{device}.txt"
+        p = Parameters(query_sequences=q, ref_sequences=r, frag_batch=16,
+                       out_file_name=out, matrix_output=True,
+                       visualize=exact)
+        fn = runner.run_sharded if exact else runner.run_sharded_fused
+        rows = fn(p, 2, 2, device=device, log=lambda m: None)
+        return rows, [open(out + suf).read() for suf in
+                      (("", ".matrix", ".visual") if exact else ("",))]
+
+    got, files = run("cuda")
+    want, want_files = run("cpu")
+    if exact:
+        assert files == want_files
+        gdir = pathlib.Path(__file__).resolve().parent / "golden"
+        for text, suf in zip(files, ("", ".matrix", ".visual")):
+            assert sorted(text.splitlines()) == sorted(
+                (gdir / ("multi.txt" + suf)).read_text().splitlines())
+    key = lambda e: (e.qry_genome, e.ref_genome)
+    got, want = {key(e): e for e in got}, {key(e): e for e in want}
+    assert set(got) == set(want) and len(got) == 2
+    for k, e in want.items():
+        assert got[k].count_seq == e.count_seq, k
+        assert abs(float(got[k].identity) - float(e.identity)) <= 1e-3, k
+
+
+def test_save_load_card(cuda_device, tmp_path, monkeypatch):
+    """An index built on the card, saved and loaded back onto the card,
+    holds the same entries; --loadIndex without --rl writes the exact TSV
+    of the run that saved it (the exact path: the fast path's device fold
+    adds float32 identities with atomics, so its last printed digit may
+    differ between two card runs)."""
+    from fastani_tpu_torch import cli
+
+    q, r = _golden_fixtures(tmp_path, monkeypatch)
+    p = Parameters(ref_sequences=r).finalize()
+    built = ReferenceIndex.build_device(p, device="cuda")
+    built.save("ix.npz", p)
+    params = Parameters()
+    loaded = ReferenceIndex.load("ix.npz", params, device="cuda")
+    assert loaded.device.type == "cuda" and params.ref_sequences == r
+    a, b = built.host_view(), loaded.host_view()
+    for name in ("mi_hash", "mi_seqid", "mi_wpos", "occ_hash", "occ_seqid",
+                 "occ_wpos"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+    pathlib.Path("refs.txt").write_text("\n".join(r) + "\n")
+    assert cli.main(["-q", q[0], "--rl", "refs.txt", "-o", "fresh.txt",
+                     "--saveIndex", "cli.npz", "--exact"]) == 0
+    assert cli.main(["-q", q[0], "--loadIndex", "cli.npz", "-o",
+                     "loaded.txt", "--exact"]) == 0
+    assert open("fresh.txt").read() == open("loaded.txt").read() != ""
