@@ -17,6 +17,10 @@ Phases, one JSON line each; any failure exits non-zero:
    all-vs-all, seed 123) through the port's CLI on the card; phase times,
    genome-pairs/s, peak memory, the counters' maxima, every kernel's
    launches in this run (zeroed just before it).
+   native_io: the port's native FASTA parser (built from the checkout by
+   g++) on mid's 32 FASTAs and a gzipped copy of one: it ran (no Python
+   parser), its names and bytes equal the Python parser's; both readers'
+   seconds.
 3b. redo: the golden fixtures through ``run_fast`` on the card with
    ``l2_entry_cap`` 128, under the span of every mapped fragment, so each
    query genome is redone exactly (``pipeline._redo_query_exact``); held
@@ -28,7 +32,12 @@ Phases, one JSON line each; any failure exits non-zero:
    row reads, fold and .visual write; 0 fallback fragments, every kernel
    launched (counts zeroed just before it); rows and counts equal to phase
    3's, ANI within 1e-3 of it; as many .visual lines as the CGI rows'
-   mapped fragments.  The .visual file is deleted afterwards.
+   mapped fragments; TSV and .matrix byte-equal to phase 3's (the device
+   fold sums as the host fold does).  The .visual file is deleted
+   afterwards.
+   cgi_matrices: ``device_cgi.cgi_matrices`` on the card over this run's
+   rows (every batch's valid rows, kept by ``exact_rows``) against its
+   host fold: counts equal, means within rtol 1e-6; its seconds.
 3d. sanity and oracle: ``-s`` on a pure-A query against an 8A+1T repeat
    reference writes no row; then the exact path on the golden fixtures at
    ``l2_entry_cap`` 128 with the kernels' L2 span limit patched down to
@@ -41,24 +50,34 @@ Phases, one JSON line each; any failure exits non-zero:
    to its plain version at each of this run's call sites, on the inputs
    the run gave it (``kernel_sites``: the first call at each of up to three
    shapes a site), and the sites' launches adding up to the run's
-   (``check_sites``); mid through ``--mesh 2x2
-   --exact --matrix``: TSV and .matrix byte-equal to phase 3c's; the golden
+   (``check_sites``); mid's first 16 query genomes against all 32
+   through ``--mesh 2x2 --exact``: the TSV byte-equal to phase 3c's lines
+   of those queries; the golden
    fixtures through ``--mesh 2x2 --exact --visualize -s --matrix``: the
    three files byte-equal to phase 2's exact run; ``--saveIndex`` then
    ``--loadIndex`` without ``--rl``, single-device and ``--mesh 2x2``, on
-   both paths: the exact TSV byte-equal to the fresh run's, the fast one
-   with the same rows and counts, ANI within 1e-3 (the device fold adds
-   float32 identities with atomics, so two card runs of the fast path may
-   differ in the last printed digit); one process over NCCL
-   (``--coordinator 127.0.0.1:<free port> --nprocs 1 --procid 0``, in a
-   process of its own) logs backend nccl and writes phase 2's fast-path
-   rows and counts; the hits_cap auto-tune where it engages (bench.py's
-   generator, seed 123, 40 genomes x 1 Mbp: static cap 10240): the static
-   and tuned caps and max_hits, the rows and counts of the run with
+   both paths: the TSV byte-equal to the fresh run's; one process over
+   NCCL (``--coordinator 127.0.0.1:<free port> --nprocs 1 --procid 0``, in
+   a process of its own) logs backend nccl and writes phase 2's fast-path
+   TSV bytes; the hits_cap auto-tune where it engages (bench.py's
+   generator, seed 123, 40 genomes x 500 kbp: static cap 10240): the static
+   and tuned caps and max_hits, the TSV bytes of the run with
    ``pipeline.autotune_hits_cap`` patched to return its mapper, and the
    tuned run's call sites checked as the mesh's, K1-K3 under
-   ``Mapper.probe_hits`` among them.  Each run prints its wall, pairs/s
-   and peak device memory.
+   ``Mapper.probe_hits`` among them.  The mesh's fast TSV and .matrix are
+   byte-equal to phase 3's.  Each run prints its wall, pairs/s and peak
+   device memory.
+   sharded_step: ``mesh.make_sharded_step`` at 2x2 on the card, the golden
+   query multi.fa against strainA and strainB: counts equal to phase 2's
+   fast path, ANI within 1e-3; every kernel launched (counted from 0
+   before the shards' builds) and held bit-equal to its plain version at
+   this run's own call sites and shapes, as the mesh's.
+   profile: ``--profile`` through the CLI, the goldens on both paths
+   (files byte-equal to phase 2's), then mid's first 8 query genomes
+   against all 32 on the fast path (4 of mid's 16 batches; TSV byte-equal
+   to phase 3's lines of those queries, every kernel launched and named in
+   the trace): its wall, the trace's window, summed device kernel time,
+   idle share and top kernels.
 4. kernels: K1-K3 at each of their main-path call sites, on the inputs
    the path itself gives them: ``run_fast`` on the first three mid genomes
    against all 32 (the mid index, two batches) with the wrappers wrapped,
@@ -80,9 +99,11 @@ Phases, one JSON line each; any failure exits non-zero:
    row-per-block kernel it replaced (``bound_row_kernel_ms``).
 
 Then the kernels table (each kernel's launches on mid through the fast
-path, ``launches``, through the exact path, ``launches_exact``, and
-through ``--mesh 2x2``, ``launches_mesh``, with the largest error of its
-mesh sites, ``max_abs_err_mesh``), the
+path, ``launches``, through the exact path, ``launches_exact``, through
+``--mesh 2x2``, ``launches_mesh``, with the largest error of its mesh
+sites, ``max_abs_err_mesh``, under ``--profile``, ``launches_profile``,
+and in the sharded step, ``launches_step``, with the largest error of
+its sites there, ``max_abs_err_step``), the
 nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits non-zero and prints no result.
@@ -112,6 +133,12 @@ PEAK_OPS = 67e12
 
 N_GENOMES = 32            # bench.py's mid workload: 32 genomes x 3 Mbp
 GENOME_BP = 3_000_000
+# the auto-tune engages past 34 reference genomes; 40 x 500 kbp (its
+# static hits_cap, 10240, depends on the genome count only)
+AUTOTUNE_BP = 500_000
+# mid's query genomes mapped under --profile (8 of 32: 4 of mid's 16
+# batches, against mid's whole index)
+PROFILE_QUERIES = 8
 
 REPLACES = {
     "winnow": "fastani_tpu/ops/pallas_winnow.py:249 (_winnow_row_kernel)",
@@ -147,8 +174,31 @@ SITES = {
 TABLE_SITE = {"winnow": "sketch", "compact": "L1 leaders", "sort": "L1 hits"}
 
 
+T0 = time.time()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets the seconds since start."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.time() - T0, 1)}
     print(json.dumps(obj), flush=True)
+
+
+def first_queries(wd: pathlib.Path, n: int) -> str:
+    """A list file of the first n genomes of ``wd/genomes.txt``."""
+    path = wd / f"first{n}.txt"
+    lines = (wd / "genomes.txt").read_text().splitlines()[:n]
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def tsv_of_queries(path, lst: str) -> bytes:
+    """The lines of a TSV whose query is in list file ``lst``, in order:
+    the TSV of a run of those queries (rows go by query genome first)."""
+    qs = set(pathlib.Path(lst).read_text().split())
+    return b"".join(ln for ln in pathlib.Path(path).read_bytes()
+                    .splitlines(keepends=True)
+                    if ln.split(b"\t")[0].decode() in qs)
 
 
 def nvidia_smi() -> str:
@@ -810,9 +860,39 @@ def tsv_rows(path) -> dict:
             for ln in pathlib.Path(path).read_text().split("\n") if ln}
 
 
+@contextlib.contextmanager
+def exact_rows(torch):
+    """While the body runs, every batch's valid mapping rows (``Mapper.
+    map_batch``'s packed block, on the card) and the host fold's arguments
+    and result (``pipeline.fold_queries``) are kept in the yielded dict
+    (``rows``: list of (7, n) tensors; ``genome_of_seq``, ``params``,
+    ``final``)."""
+    from fastani_tpu_torch.models import jitmap, pipeline
+
+    kept = {"rows": []}
+    map_batch, fold = jitmap.Mapper.map_batch, pipeline.fold_queries
+
+    def keep_rows(self, *args, **kw):
+        out = map_batch(self, *args, **kw)
+        kept["rows"].append(out["packed"][:, :int(out["counts"][0])].clone())
+        return out
+
+    def keep_fold(maps, genome_of_seq, ref_offsets, stream, params, stats):
+        kept.update(genome_of_seq=genome_of_seq, params=params)
+        kept["final"] = fold(maps, genome_of_seq, ref_offsets, stream,
+                             params, stats)
+        return kept["final"]
+
+    jitmap.Mapper.map_batch, pipeline.fold_queries = keep_rows, keep_fold
+    try:
+        yield kept
+    finally:
+        jitmap.Mapper.map_batch, pipeline.fold_queries = map_batch, fold
+
+
 def run_exact_mid(torch, n_genomes: int):
     """Phase 3's genomes and list through the CLI's exact path; returns
-    the kernels' launches in this run."""
+    the kernels' launches in this run and ``exact_rows``' capture."""
     from fastani_tpu_torch import cli
     from fastani_tpu_torch.ops import cuda as kc
 
@@ -823,9 +903,10 @@ def run_exact_mid(torch, n_genomes: int):
     torch.cuda.reset_peak_memory_stats()
     kc.reset_launches()
     t0 = time.time()
-    rc = cli.main(["--ql", str(genomes), "--rl", str(genomes), "-o", str(out),
-                   "--exact", "--matrix", "--visualize", "--device", "cuda"],
-                  stats=stats)
+    with exact_rows(torch) as kept:
+        rc = cli.main(["--ql", str(genomes), "--rl", str(genomes), "-o",
+                       str(out), "--exact", "--matrix", "--visualize",
+                       "--device", "cuda"], stats=stats)
     torch.cuda.synchronize()
     wall = time.time() - t0
     if rc != 0:
@@ -841,6 +922,11 @@ def run_exact_mid(torch, n_genomes: int):
     dev_max = max((abs(float(got[k][0]) - float(want[k][0]))
                    for k in want if k in got), default=0.0)
     mapped = sum(int(r[1]) for r in got.values())
+    # the device fold sums as the host fold does, so the fast path's TSV
+    # and .matrix are the exact path's bytes
+    same_fast = [(wd / ("mid.txt" + suf)).read_bytes()
+                 == pathlib.Path(f"{out}{suf}").read_bytes()
+                 for suf in ("", ".matrix")]
     emit({"phase": "exact", "genomes": n_genomes, "pairs": n_pairs,
           "wall_s": wall, "pairs_per_s": n_pairs / wall,
           "t_index_build_s": stats["t_index_build"],
@@ -854,6 +940,7 @@ def run_exact_mid(torch, n_genomes: int):
           "fallback_frags": stats["fallback_frags"],
           "oracle_frags": stats["oracle_frags"], "launches": launches,
           "tsv_rows": len(got), "max_ani_diff_vs_fast": dev_max,
+          "byte_equal_fast": same_fast,
           "visual_lines": n_visual, "visual_bytes": visual_bytes,
           "mapped_fragments": mapped})
     missing = [k for k, v in launches.items() if v <= 0]
@@ -869,14 +956,15 @@ def run_exact_mid(torch, n_genomes: int):
         if got[k][1:] != r[1:]:
             raise AssertionError(f"exact: counts differ at {k}: {got[k]} "
                                  f"vs {r}")
-    if dev_max > 1e-3:
-        raise AssertionError(f"exact: ANI off the fast path's by {dev_max}")
+    if dev_max > 1e-3 or not all(same_fast):
+        raise AssertionError(f"exact: TSV and .matrix not the fast path's "
+                             f"bytes ({same_fast}; ANI off by {dev_max})")
     # every CGI row is in the TSV (all pairs pass), and each of its mapped
     # fragments is one .visual line
     if n_visual != mapped:
         raise AssertionError(f"exact: {n_visual} .visual lines for "
                              f"{mapped} mapped fragments")
-    return launches
+    return launches, kept
 
 
 # ---------------------------------------------------------------------------
@@ -1013,34 +1101,43 @@ def run_mesh(torch, np, n_genomes: int, golden: pathlib.Path):
     launches = dict(kc.LAUNCHES)
     dev = same_rows(tsv_rows(wd / "mesh.txt"), tsv_rows(wd / "mid.txt"),
                     "mesh fast")
+    # each genome's sum is a fold over its own bins in bin order, so a
+    # shard's sums are the single run's bits
+    same = [(wd / ("mesh.txt" + suf)).read_bytes()
+            == (wd / ("mid.txt" + suf)).read_bytes()
+            for suf in ("", ".matrix")]
     emit({"phase": "mesh_fast", "mesh": "2x2", "pairs": n_pairs,
           **run_metrics(torch, wall, n_pairs),
           "t_index_build_s": stats["t_index_build"],
           "t_map_fold_s": stats["t_map_fold"], "batches": stats["batches"],
           "fallback_frags": stats["fallback_frags"],
           "max_hits": stats["max_hits"], "launches": launches,
-          "max_ani_diff_vs_single": dev})
+          "max_ani_diff_vs_single": dev, "byte_equal_single": same})
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         raise AssertionError(f"mesh: kernels not launched: {missing}")
+    if not all(same):
+        raise AssertionError(f"mesh fast: files differ from phase 3's: {same}")
     # every kernel at the mesh's own call sites and shapes (B_local rows,
     # the shards' caps and index builds) against its plain version
     mesh_sites = check_sites(torch, "mesh 2x2", seen, launches)
     del seen
 
-    # mid, exact path: byte-equal to phase 3c's TSV and .matrix
+    # mid's first 16 query genomes, exact path: the TSV is phase 3c's
+    # lines of those queries, byte for byte (the goldens below hold the
+    # mesh's .matrix and .visual)
     stats = {}
     out = wd / "mesh_exact.txt"
-    wall = timed_cli(torch, mid + ["-o", str(out), "--exact"], stats)
-    same = [(wd / ("mid_exact.txt" + suf)).read_bytes()
-            == pathlib.Path(f"{out}{suf}").read_bytes()
-            for suf in ("", ".matrix")]
-    emit({"phase": "mesh_exact", "mesh": "2x2", "pairs": n_pairs,
-          **run_metrics(torch, wall, n_pairs), "t_map_s": stats["t_map"],
+    half = first_queries(wd, n_genomes // 2)
+    wall = timed_cli(torch, ["--ql", half, "--rl", lst, "--mesh", "2x2",
+                             "-o", str(out), "--exact"], stats)
+    same = out.read_bytes() == tsv_of_queries(wd / "mid_exact.txt", half)
+    emit({"phase": "mesh_exact", "mesh": "2x2", "queries": n_genomes // 2,
+          **run_metrics(torch, wall, n_pairs // 2), "t_map_s": stats["t_map"],
           "t_fold_s": stats["t_fold"], "fallback_frags":
-          stats["fallback_frags"], "byte_equal_tsv_matrix": same})
-    if not all(same):
-        raise AssertionError("mesh exact: files differ from phase 3c's")
+          stats["fallback_frags"], "byte_equal_tsv": same})
+    if not same:
+        raise AssertionError("mesh exact: TSV differs from phase 3c's")
 
     cwd = os.getcwd()
     os.chdir(golden)
@@ -1059,9 +1156,7 @@ def run_mesh(torch, np, n_genomes: int, golden: pathlib.Path):
             raise AssertionError("mesh golden exact: files differ")
 
         # --saveIndex, then --loadIndex without --rl: the fresh run's TSV
-        # (the exact path's bytes; the fast path's rows and counts, ANI
-        # within 1e-3: its device fold adds float32 identities with
-        # atomics, so two card runs may differ in the last printed digit)
+        # bytes, on both paths
         persist = {}
         for tag, extra, idx in (("single", [], "ix.npz"),
                                 ("mesh", ["--mesh", "2x2"], "ixm")):
@@ -1082,8 +1177,8 @@ def run_mesh(torch, np, n_genomes: int, golden: pathlib.Path):
                     "max_ani_diff": same_rows(tsv_rows(loaded),
                                               tsv_rows(fresh),
                                               f"--loadIndex {tag} {path}")}
-                if path == "exact" and not same:
-                    raise AssertionError(f"--loadIndex {tag}: the exact "
+                if not same:
+                    raise AssertionError(f"--loadIndex {tag} {path}: the "
                                          f"TSV differs from the fresh run")
         emit({"phase": "mesh_persist", **persist})
 
@@ -1111,6 +1206,9 @@ def run_mesh(torch, np, n_genomes: int, golden: pathlib.Path):
                   tsv_rows("nccl.txt"), tsv_rows("g2.txt"), "NCCL run")})
         if not backend or "backend nccl" not in backend[0]:
             raise AssertionError(f"NCCL run: wrong backend: {backend}")
+        if pathlib.Path("nccl.txt").read_bytes() != \
+                pathlib.Path("g2.txt").read_bytes():
+            raise AssertionError("NCCL run: TSV differs from phase 2's")
     finally:
         os.chdir(cwd)
 
@@ -1118,7 +1216,7 @@ def run_mesh(torch, np, n_genomes: int, golden: pathlib.Path):
     aw = WORK / "autotune"
     aw.mkdir(parents=True, exist_ok=True)
     t0 = time.time()
-    paths = build_workload(np, aw, 40, 1_000_000)
+    paths = build_workload(np, aw, 40, AUTOTUNE_BP)
     (aw / "g.txt").write_text("\n".join(paths) + "\n")
     gen_s = time.time() - t0
     args = ["--ql", str(aw / "g.txt"), "--rl", str(aw / "g.txt")]
@@ -1145,7 +1243,7 @@ def run_mesh(torch, np, n_genomes: int, golden: pathlib.Path):
     same = (aw / "tuned.txt").read_bytes() == (aw / "static.txt").read_bytes()
     ani_diff = same_rows(tsv_rows(aw / "tuned.txt"),
                          tsv_rows(aw / "static.txt"), "autotune")
-    emit({"phase": "autotune", "genomes": 40, "genome_bp": 1_000_000,
+    emit({"phase": "autotune", "genomes": 40, "genome_bp": AUTOTUNE_BP,
           "gen_s": gen_s, "hits_cap_static": tuned["hits_cap_static"],
           "hits_cap_tuned": tuned["hits_cap"], "max_hits": tuned["max_hits"],
           "fallback_frags": tuned["fallback_frags"],
@@ -1157,7 +1255,250 @@ def run_mesh(torch, np, n_genomes: int, golden: pathlib.Path):
     shutil.rmtree(aw, ignore_errors=True)
     if not tuned["hits_cap"] < tuned["hits_cap_static"] == 10240:
         raise AssertionError("autotune: hits_cap did not shrink below 10240")
+    if not same:
+        raise AssertionError("autotune: tuned and static TSVs differ")
     return launches, mesh_sites
+
+
+# ---------------------------------------------------------------------------
+# phases native_io, profile, cgi_matrices and sharded_step
+# ---------------------------------------------------------------------------
+
+def run_native_io(paths) -> None:
+    """The native parser (built from the checkout by ``native.load``) on
+    mid's FASTAs and a gzipped copy of the first: names and bytes equal to
+    the Python parser's; each reader's seconds."""
+    import gzip
+
+    from fastani_tpu_torch import native
+    from fastani_tpu_torch.io import fasta
+
+    if os.environ.get("FASTANI_TPU_NO_NATIVE"):
+        raise AssertionError("native_io: FASTANI_TPU_NO_NATIVE is set")
+    gz = WORK / "mid" / "g0.fa.gz"
+    gz.write_bytes(gzip.compress(pathlib.Path(paths[0]).read_bytes()))
+    files = list(paths) + [str(gz)]
+    parses, parse = [], native.parse
+    native.parse = lambda data: (parses.append(len(data)), parse(data))[1]
+    try:
+        t0 = time.time()
+        nat = [list(fasta.read_sequences(p)) for p in files]
+        t_native = time.time() - t0
+    finally:
+        native.parse = parse
+    t0 = time.time()
+    py = [list(fasta.read_sequences_py(p)) for p in files]
+    t_python = time.time() - t0
+    same = all([n for n, _ in a] == [n for n, _ in b]
+               and all(x.tobytes() == y.tobytes()
+                       for (_, x), (_, y) in zip(a, b))
+               for a, b in zip(nat, py))
+    emit({"phase": "native_io", "library": str(native.lib_path()),
+          "files": len(paths), "gz_files": 1, "native_parses": len(parses),
+          "bytes_read": sum(parses),
+          "seq_bytes": int(sum(len(x) for a in nat for _, x in a)),
+          "native_s": t_native, "python_s": t_python,
+          "byte_equal": same})
+    gz.unlink()
+    if len(parses) != len(files) or not native.lib_path().exists():
+        raise AssertionError("native_io: the native parser did not run")
+    if not same:
+        raise AssertionError("native_io: the parsers' records differ")
+
+
+# the CUDA function names of each kernel, as the profiler's trace shows
+# them
+KERNEL_FUNCS = {
+    "winnow": ("winnow_tile_kernel",),
+    "compact": ("compact_chunks_kernel",),
+    "sort": ("sort_rows_net_kernel", "sort_rows_radix_kernel"),
+    "sort_kv": ("sort_rows_kv_kernel",),
+    "walk": ("walk_kernel",),
+}
+
+
+def trace_summary(path: str, top: int = 10) -> dict:
+    """A Chrome trace's kernels: their summed device time, the profiled
+    window (first event to last), the device's idle share of it, the top
+    kernels by device time and the kernels of KERNEL_FUNCS seen."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    lo = min(float(e["ts"]) for e in events)
+    hi = max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
+    by_name = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            t = by_name.setdefault(e["name"], [0.0, 0])
+            t[0] += float(e.get("dur", 0))
+            t[1] += 1
+    dev_us = sum(t for t, _ in by_name.values())
+    seen = {k: sum(n for name, (_, n) in by_name.items()
+                   if any(f in name for f in funcs))
+            for k, funcs in KERNEL_FUNCS.items()}
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"trace_bytes": os.path.getsize(path), "events": len(events),
+            "window_s": (hi - lo) / 1e6, "device_kernel_s": dev_us / 1e6,
+            "device_idle_share": 1.0 - dev_us / (hi - lo),
+            "kernel_launches_in_trace": seen,
+            "top_kernels": [{"name": name[:90], "device_ms": t / 1e3,
+                             "share": t / dev_us, "calls": n}
+                            for name, (t, n) in rows]}
+
+
+def run_profile(torch, n_genomes: int, golden: pathlib.Path) -> dict:
+    """``--profile`` through the CLI: the goldens on both paths (files
+    byte-equal to phase 2's), then mid's first PROFILE_QUERIES query
+    genomes against all of mid on the fast path (TSV byte-equal to phase
+    3's lines of those queries; every kernel named in the trace).  Returns
+    the kernels' launches in the mid run (counted from 0 just before)."""
+    from fastani_tpu_torch.ops import cuda as kc
+
+    cwd = os.getcwd()
+    os.chdir(golden)
+    try:
+        same = []
+        for args, out, want, sufs in (
+                (["-q", "base.fa", "-r", "strainA.fa"], "p_g1.txt",
+                 "g1.txt", ("",)),
+                (["-q", "multi.fa", "--rl", "refs.txt", "--exact",
+                  "--visualize", "--matrix"], "px_g2.txt", "x_g2.txt",
+                 ("", ".matrix", ".visual"))):
+            st = {}
+            timed_cli(torch, args + ["-o", out, "--profile", "prof"], st)
+            same += [pathlib.Path(out + suf).read_bytes()
+                     == pathlib.Path(want + suf).read_bytes()
+                     for suf in sufs]
+            same.append(os.path.exists(st["profile_trace"]))
+        shutil.rmtree("prof")
+    finally:
+        os.chdir(cwd)
+    emit({"phase": "profile_golden", "byte_equal_and_traced": same})
+    if not all(same):
+        raise AssertionError(f"profile: goldens differ or untraced: {same}")
+
+    wd = WORK / "mid"
+    lst = str(wd / "genomes.txt")
+    queries = first_queries(wd, PROFILE_QUERIES)
+    n_pairs = PROFILE_QUERIES * n_genomes
+    stats = {}
+    kc.reset_launches()
+    wall = timed_cli(torch, ["--ql", queries, "--rl", lst, "-o",
+                             str(wd / "prof.txt"), "--profile",
+                             str(wd / "prof")], stats)
+    launches = dict(kc.LAUNCHES)
+    t0 = time.time()
+    summary = trace_summary(stats["profile_trace"])
+    same = [(wd / "prof.txt").read_bytes()
+            == tsv_of_queries(wd / "mid.txt", queries)]
+    emit({"phase": "profile", "queries": PROFILE_QUERIES, "pairs": n_pairs,
+          "batches": stats["batches"],
+          **run_metrics(torch, wall, n_pairs),
+          "t_map_fold_s": stats["t_map_fold"],
+          "t_trace_export_s": stats["t_trace_export"],
+          "t_trace_read_s": time.time() - t0, "launches": launches,
+          "byte_equal_fast": same, **summary})
+    shutil.rmtree(wd / "prof")
+    unnamed = [k for k, n in summary["kernel_launches_in_trace"].items()
+               if not n]
+    if unnamed or not all(same):
+        raise AssertionError(f"profile: kernels not in the trace: {unnamed}; "
+                             f"files equal to phase 3's: {same}")
+    return launches
+
+
+def run_cgi_matrices(torch, kept: dict) -> None:
+    """``device_cgi.cgi_matrices`` on the card over phase 3c's rows (every
+    batch's valid rows: mid has no fallback fragment) against that phase's
+    host fold (``ani.compute_cgi_arrays``): counts equal, means within rtol
+    1e-6 (and the count of means that differ in any bit)."""
+    import numpy as np
+
+    from fastani_tpu_torch.models import device_cgi
+
+    rows = torch.cat(kept["rows"], 1).long()
+    params, final = kept["params"], kept["final"]
+    gos = torch.as_tensor(kept["genome_of_seq"], device="cuda")
+    G = len(params.ref_sequences)
+    lut = torch.as_tensor(device_cgi.identity_lut_full(
+        params.kmer_size, max(params.sketch_cap, int(rows[5].max()))),
+        device="cuda")
+    args = (rows[1], rows[2], rows[3], rows[4], rows[5], rows[6],
+            torch.ones(rows.shape[1], dtype=torch.bool, device="cuda"), gos,
+            lut, params.frag_len, len(params.query_sequences), G)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        counts, sums = device_cgi.cgi_matrices(*args)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    counts, sums = counts.cpu().numpy(), sums.cpu().numpy()
+    want_c = np.zeros_like(counts)
+    want_i = np.zeros(counts.shape, np.float32)
+    for e in final:
+        want_c[e.qry_genome, e.ref_genome] = e.count_seq
+        want_i[e.qry_genome, e.ref_genome] = e.identity
+    occ = want_c > 0
+    mean = (sums[occ] / np.maximum(counts[occ], 1)).astype(np.float32)
+    rel = float(np.max(np.abs(mean - want_i[occ]) / want_i[occ]))
+    emit({"phase": "cgi_matrices", "rows": rows.shape[1], "pairs": len(final),
+          "seconds": times, "counts_equal": bool((counts == want_c).all()),
+          "max_rel_diff_mean": rel,
+          "means_not_bit_equal": int((mean.view(np.int32)
+                                      != want_i[occ].view(np.int32)).sum())})
+    if not (counts == want_c).all() or rel > 1e-6:
+        raise AssertionError(f"cgi_matrices: counts or sums differ from the "
+                             f"host fold (max rel diff {rel})")
+
+
+def run_sharded_step(torch, golden: pathlib.Path) -> dict:
+    """``mesh.make_sharded_step`` on the card at 2x2: the golden query
+    multi.fa against strainA (shard 0) and strainB (shard 1), counts equal
+    to phase 2's fast path, ANI within 1e-3 of it, and every kernel held
+    bit-equal to its plain version at this run's call sites.  Returns the
+    kernels' launches in this run (the shards' builds and the step) and
+    ``check_sites``' result."""
+    from fastani_tpu_torch.config import Parameters
+    from fastani_tpu_torch.models import pipeline
+    from fastani_tpu_torch.ops import cuda as kc
+    from fastani_tpu_torch.parallel import distributed, mesh as pmesh
+
+    refs = ["strainA.fa", "strainB.fa"]
+    p = Parameters(ref_sequences=[str(golden / r) for r in refs]).finalize()
+    frags = pipeline.load_query_fragments(str(golden / "multi.fa"), p).frags
+    torch.cuda.synchronize()
+    kc.reset_launches()
+    t0 = time.time()
+    with kernel_sites(torch, kc.KERNELS, shapes_per_site=3) as seen:
+        shards = pmesh.build_shards(p, distributed.plan(2, 2),
+                                    torch.device("cuda"), {}, lambda m: None)
+        step = pmesh.make_sharded_step(p, shards, 2, 2, -(-len(frags) // 2))
+        sums, counts = (t.cpu().numpy() for t in step(frags))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(kc.LAUNCHES)
+    # every kernel at the step's own call sites and shapes (25-row q
+    # slices, one-genome shards, their index builds)
+    sites = check_sites(torch, "sharded step", seen, launches)
+    del seen
+    want = tsv_rows(golden / "g2.txt")
+    got = {("multi.fa", ref): [str(sums[r, 0] / counts[r, 0]),
+                               str(counts[r, 0])]
+           for r, ref in enumerate(refs) if counts[r, 0]}
+    dev = max(abs(float(got[k][0]) - float(v[0])) for k, v in want.items())
+    emit({"phase": "sharded_step", "mesh": "2x2", "fragments": len(frags),
+          "wall_s": wall, "counts": counts[:, 0].tolist(),
+          "max_ani_diff_vs_fast": dev, "launches": launches})
+    if set(got) != set(want) or any(got[k][1] != v[1]
+                                    for k, v in want.items()):
+        raise AssertionError(f"sharded step: {got} against {want}")
+    if dev > 1e-3:
+        raise AssertionError(f"sharded step: ANI off by {dev}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"sharded step: kernels not launched: {missing}")
+    return launches, sites
 
 
 # ---------------------------------------------------------------------------
@@ -1266,10 +1607,15 @@ def main() -> int:
 
     golden_dir = run_golden(np)
     launches, paths, batches = run_main_path(torch, np, N_GENOMES, GENOME_BP)
+    run_native_io(paths)
     run_redo(torch, golden_dir)
-    launches_exact = run_exact_mid(torch, N_GENOMES)
+    launches_exact, kept = run_exact_mid(torch, N_GENOMES)
+    run_cgi_matrices(torch, kept)
+    del kept
     run_sanity_and_oracle(torch, np, golden_dir)
     launches_mesh, mesh_sites = run_mesh(torch, np, N_GENOMES, golden_dir)
+    launches_step, step_sites = run_sharded_step(torch, golden_dir)
+    launches_profile = run_profile(torch, N_GENOMES, golden_dir)
     kernels = check_kernels(torch, np, paths, batches, launches)
 
     table = []
@@ -1279,8 +1625,11 @@ def main() -> int:
                       "replaces": REPLACES[name], "launches": launches[name],
                       "launches_exact": launches_exact[name],
                       "launches_mesh": launches_mesh[name],
+                      "launches_profile": launches_profile[name],
+                      "launches_step": launches_step[name],
                       "max_abs_err": r["max_abs_err"],
                       "max_abs_err_mesh": mesh_sites[name]["max_abs_err"],
+                      "max_abs_err_step": step_sites[name]["max_abs_err"],
                       "ms": r["kernel_ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],

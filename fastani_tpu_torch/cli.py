@@ -3,6 +3,7 @@
 
     python -m fastani_tpu_torch.cli -q genome1.fa -r genome2.fa -o out.txt
     python -m fastani_tpu_torch.cli --ql queries.txt --rl refs.txt -o out.txt --matrix
+    python -m fastani_tpu_torch.cli -q a.fa -r b.fa -o out.txt --profile prof/
     python -m fastani_tpu_torch.cli -q a.fa -r b.fa -o out.txt --exact --visualize
     python -m fastani_tpu_torch.cli -q a.fa -r b.fa -o out.txt --saveIndex ref.npz
     python -m fastani_tpu_torch.cli -q a.fa --loadIndex ref.npz -o out.txt
@@ -102,6 +103,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="restore a persisted reference index instead of "
                         "sketching (the reference file list comes from the "
                         "index, so -r is optional)")
+    p.add_argument("--profile", dest="profile", default="",
+                   help="write a torch.profiler Chrome trace of the mapping "
+                        "phase into this directory (single-device runs)")
     p.add_argument("--mesh", default="",
                    help="run sharded on an RxQ grid, e.g. --mesh 2x4 (R "
                         "reference shards x Q slices of each fragment "
@@ -146,6 +150,7 @@ def main(argv=None, stats: Optional[dict] = None) -> int:
         out_file_name=args.output,
         save_index=args.saveIndex,
         load_index=args.loadIndex,
+        profile_dir=args.profile,
         ref_sequences=([args.ref] if args.ref
                        else parse_file_list(args.refList) if args.refList
                        else []),

@@ -41,6 +41,8 @@ class Parameters:
     # index persistence (the JAX package's .npz format, version 1)
     save_index: str = ""                 # write the built index here
     load_index: str = ""                 # skip the build, restore from here
+    # write a torch.profiler Chrome trace of the mapping phase here
+    profile_dir: str = ""
 
     # capacity caps of the fixed-width buffers; a query genome that owns a
     # fragment over one is redone exactly with caps sized to its data

@@ -1,18 +1,28 @@
-"""FASTA/FASTQ reading, plain or gzip (counterpart of the pure-Python
-reader in ``fastani_tpu/io/fasta.py``).
+"""FASTA/FASTQ reading, plain or gzip (counterpart of
+``fastani_tpu/io/fasta.py``).
 
 Record semantics of the reference's kseq parser (src/common/kseq.h):
 records begin at '>' (FASTA) or '@' (FASTQ), the name is the header text
 up to the first whitespace, the sequence is the concatenation of sequence
 lines, FASTQ quality lines are skipped.
+
+Two parsers with these semantics: the native C++ one (``native``), which
+``read_sequences`` runs, and the pure-Python one (``read_sequences_py``),
+the oracle of the native one, which ``read_sequences`` runs only under the
+JAX package's switch ``FASTANI_TPU_NO_NATIVE``.  ``FASTANI_TRACE_READS``
+names a file to which each parsed path is appended (the JAX package's
+hook: tests check which genome files a process reads).
 """
 
 from __future__ import annotations
 
 import gzip
+import os
 from typing import Iterator, List, Tuple
 
 import numpy as np
+
+from fastani_tpu_torch import native
 
 
 def _open_bytes(path: str) -> bytes:
@@ -26,7 +36,23 @@ def _open_bytes(path: str) -> bytes:
 
 
 def read_sequences(path: str) -> Iterator[Tuple[str, np.ndarray]]:
-    """Yield (name, sequence bytes as a uint8 array) per record, in order."""
+    """Yield (name, sequence bytes as a uint8 array) per record, in order:
+    the native parser's records, or with ``FASTANI_TPU_NO_NATIVE`` set the
+    Python parser's."""
+    trace = os.environ.get("FASTANI_TRACE_READS")
+    if trace:
+        with open(trace, "a") as f:
+            f.write(path + "\n")
+    if os.environ.get("FASTANI_TPU_NO_NATIVE"):
+        yield from read_sequences_py(path)
+        return
+    names, seq, offsets = native.parse(_open_bytes(path))
+    for i, name in enumerate(names):
+        yield name, seq[offsets[i]:offsets[i + 1]]
+
+
+def read_sequences_py(path: str) -> Iterator[Tuple[str, np.ndarray]]:
+    """The pure-Python parser (the native parser's oracle)."""
     data = _open_bytes(path)
     n = len(data)
     i = 0

@@ -11,9 +11,15 @@ once its last batch has passed, and the slot is reused; on a mesh the
 slot's row is first merged over the q cells (``StreamingCGI.finalize_list``).
 Identities come
 from a float32 LUT over (sketch size, shared count), so each row's
-identity equals the host path's; the per-pair sums are float32 reductions
-in another order, so they may differ from the JAX package in the last
-bits (counts are exact).
+identity equals the host path's.  Each genome's identities are summed as
+the reference sums them, a float32 left fold in bin order
+(``fold_sequential``), so the sums are the same bits on the card and on
+the CPU, in every run, on a shard as in the single run, and equal to the
+exact path's host fold; the JAX package's segment sums may differ from
+them in the last bits (counts are exact).
+
+``cgi_matrices`` is the one-shot form over accumulated rows (the 1-way and
+2-way dedupes by sorts), used by ``parallel.mesh.make_sharded_step``.
 """
 
 from __future__ import annotations
@@ -90,32 +96,157 @@ def update_tab(tab, packed, n_valid: int, genome_of_seq, bin_start,
     return tab
 
 
+def genome_bins(gid_of_bin, n_rg: int) -> np.ndarray:
+    """(max bins of a genome, n_rg) int64: row j holds each reference
+    genome's j-th bin, ``len(gid_of_bin)`` where the genome has fewer (a
+    pad column the caller appends).  A genome's bins are one contiguous
+    range: ``make_bin_tables`` repeats ``genome_of_seq`` in seqId order,
+    and seqIds are numbered file by file, so ``gid_of_bin`` never
+    decreases."""
+    gob = np.asarray(gid_of_bin, np.int64)
+    if np.any(np.diff(gob) < 0):
+        raise ValueError("gid_of_bin decreases: a genome's bins are not one "
+                         "contiguous range")
+    n = np.bincount(gob, minlength=n_rg)[:n_rg]
+    start = np.cumsum(n) - n
+    j = np.arange(max(int(n.max(initial=0)), 1))[:, None]
+    return np.where(j < n, start + j, len(gob))
+
+
+def fold_sequential(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim as a left fold from 0.0, element 0 first: the
+    reference's float32 accumulation (computeCoreIdentity.hpp:267-297).
+    Each step is one elementwise add, so the bits do not depend on the
+    device, on thread scheduling, or on zeros padded at the end."""
+    cols = x.movedim(-1, 0).contiguous()
+    acc = torch.zeros(cols.shape[1:], dtype=x.dtype, device=x.device)
+    for c in cols.unbind(0):
+        acc.add_(c)
+    return acc
+
+
+# bin columns gathered at a time by finalize_rows: bounds its scratch to
+# FOLD_BLOCK x Gr x FIN floats, whatever the longest genome's bin count
+FOLD_BLOCK = 64
+
+
 def finalize_rows(tab, acc_counts, acc_sums, fin_qnos: torch.Tensor,
-                  gid_of_bin, n_slots: int, n_rg: int, rows=None):
+                  bins_of_genome, n_slots: int, rows=None):
     """Fold the table rows of the listed query genomes into the (Gq, Gr)
     accumulators and clear their slots, in place.  ``fin_qnos`` (FIN,)
-    lists query genomes whose last fragment has been folded; ``rows``
-    (FIN, B_tot), when given, is folded in place of their slots' rows."""
+    lists query genomes whose last fragment has been folded;
+    ``bins_of_genome`` is ``genome_bins``' index; ``rows`` (FIN, B_tot),
+    when given, is folded in place of their slots' rows.  Counts are exact
+    int32 prefix-sum differences over each genome's bin range; each
+    genome's identities are summed as ``fold_sequential`` sums them, a
+    left fold over its own bins in bin order (FOLD_BLOCK bin columns
+    gathered at a time), so its sum does not depend on the other genomes.
+    One elementwise add per bin of the longest genome."""
     FIN = fin_qnos.shape[0]
     if not FIN:
         return tab, acc_counts, acc_sums
-    dev = tab.device
     slots = fin_qnos % n_slots
     if rows is None:
         rows = tab[slots]                               # (FIN, B_tot)
+    B_tot, dev = rows.shape[1], rows.device
     occ = rows >= 0
-    ident = torch.where(occ, rows.view(torch.float32), 0.0)
-    seg = torch.where(occ, gid_of_bin[None, :].long(), n_rg)
-    seg_flat = (torch.arange(FIN, device=dev)[:, None] * (n_rg + 1)
-                + seg).reshape(-1)
-    cnt = torch.zeros(FIN * (n_rg + 1), dtype=torch.int32, device=dev)
-    cnt.index_add_(0, seg_flat, occ.to(torch.int32).reshape(-1))
-    sm = torch.zeros(FIN * (n_rg + 1), dtype=torch.float32, device=dev)
-    sm.index_add_(0, seg_flat, ident.reshape(-1))
-    acc_counts.index_add_(0, fin_qnos, cnt.view(FIN, n_rg + 1)[:, :n_rg])
-    acc_sums.index_add_(0, fin_qnos, sm.view(FIN, n_rg + 1)[:, :n_rg])
+    cs = torch.zeros((FIN, B_tot + 1), dtype=torch.int32, device=dev)
+    cs[:, 1:] = occ.cumsum(1, dtype=torch.int32)
+    start = bins_of_genome[0]
+    end = start + (bins_of_genome < B_tot).sum(0)
+    acc_counts.index_add_(0, fin_qnos, cs[:, end] - cs[:, start])
+    vals = torch.zeros((B_tot + 1, FIN), dtype=torch.float32, device=dev)
+    vals[:B_tot] = torch.where(occ, rows.view(torch.float32), 0.0).t()
+    acc = torch.zeros((bins_of_genome.shape[1], FIN), dtype=torch.float32,
+                      device=dev)
+    for j in range(0, bins_of_genome.shape[0], FOLD_BLOCK):
+        for col in vals[bins_of_genome[j:j + FOLD_BLOCK]].unbind(0):
+            acc.add_(col)                               # (Gr, FIN)
+    acc_sums.index_add_(0, fin_qnos, acc.t())
     tab[slots] = -1
     return tab, acc_counts, acc_sums
+
+
+def _lexsort(keys) -> torch.Tensor:
+    """``np.lexsort``: the order sorting by the last key, ties by the one
+    before it, and so on; stable sorts from the least significant key up."""
+    order = torch.arange(keys[0].shape[0], device=keys[0].device)
+    for k in keys:
+        order = order[torch.sort(k[order], stable=True).indices]
+    return order
+
+
+def _last_of_groups(*cols) -> torch.Tensor:
+    """Whether each position of the sorted columns ends its run of equal
+    tuples."""
+    last = torch.zeros(cols[0].shape[0], dtype=torch.bool,
+                       device=cols[0].device)
+    last[-1:] = True
+    for c in cols:
+        last[:-1] |= c[:-1] != c[1:]
+    return last
+
+
+def cgi_matrices(qno, qsid, sid, shared, sketch, pos, valid, genome_of_seq,
+                 ident_lut, frag_len: int, n_query_genomes: int,
+                 n_ref_genomes: int):
+    """Device CGI over accumulated mapping rows of all query genomes (the
+    JAX package's ``cgi_matrices``).  Row tensors are (N,) ints, invalid
+    rows arbitrary and masked by ``valid`` (N,) bool.  Returns (counts
+    (Gq, Gr) int32, sums (Gq, Gr) float32) after the 1-way and 2-way
+    dedupes of computeCoreIdentity.hpp:212-255 with the tie-breakers of
+    ``ani.compute_cgi_arrays``: 1-way, the last of an ascending sort by
+    (qno, genome, qsid, identity, sid, pos); 2-way per (qno, sid, bin),
+    kept rows first, the last by (identity, qsid).  Each pair's identities
+    are summed by ``fold_sequential`` in (sid, bin) order, the host fold's
+    order."""
+    Gq, Gr = n_query_genomes, n_ref_genomes
+    dev = sid.device
+    counts = torch.zeros(Gq * Gr, dtype=torch.int32, device=dev)
+    sums = torch.zeros(Gq * Gr, dtype=torch.float32, device=dev)
+    qno, qsid, sid, shared, sketch, pos = (
+        x.long() for x in (qno, qsid, sid, shared, sketch, pos))
+    valid = valid.bool()
+    if sid.shape[0]:
+        ident = ident_lut[sketch.clamp(0, ident_lut.shape[0] - 1),
+                          shared.clamp(0, ident_lut.shape[1] - 1)]
+        gid = genome_of_seq[sid.clamp(0, genome_of_seq.shape[0] - 1)].long()
+        gid = torch.where(valid, gid, Gr)               # invalid: pad group
+        qno_m = torch.where(valid, qno, Gq)
+        pos_bin = pos // (frag_len - 20)        # computeCoreIdentity.hpp:194
+        # non-negative float32 bit patterns order like the floats
+        ibits = torch.where(valid, ident, 0.0).view(torch.int32).long()
+
+        o1 = _lexsort((pos, sid, ibits, qsid, gid, qno_m))
+        keep1 = torch.zeros_like(valid)
+        keep1[o1] = _last_of_groups(qno_m[o1], gid[o1], qsid[o1])
+        keep1 &= valid
+
+        drop = (~keep1).long()
+        o2 = _lexsort((qsid, torch.where(keep1, ibits, -1), pos_bin, sid,
+                       qno_m, drop))
+        keep2 = torch.zeros_like(valid)
+        keep2[o2] = _last_of_groups(drop[o2], qno_m[o2], sid[o2],
+                                    pos_bin[o2]) & (drop[o2] == 0)
+        keep2 &= keep1
+
+        # kept rows in (qno, sid, bin) order, then grouped by pair
+        sel = o2[keep2[o2]]
+        if sel.shape[0]:
+            by_pair = torch.sort(qno[sel] * Gr + gid[sel], stable=True)
+            sel = sel[by_pair.indices]
+            seg, n_rows = torch.unique_consecutive(by_pair.values,
+                                                   return_counts=True)
+            grp = torch.repeat_interleave(
+                torch.arange(seg.shape[0], device=dev), n_rows)
+            rank = (torch.arange(sel.shape[0], device=dev)
+                    - (torch.cumsum(n_rows, 0) - n_rows)[grp])
+            buf = torch.zeros((seg.shape[0], int(n_rows.max())),
+                              dtype=torch.float32, device=dev)
+            buf[grp, rank] = ident[sel]
+            counts[seg] = n_rows.to(torch.int32)
+            sums[seg] = fold_sequential(buf)
+    return counts.view(Gq, Gr), sums.view(Gq, Gr)
 
 
 class StreamingCGI:
@@ -136,7 +267,8 @@ class StreamingCGI:
             [c.length for c in index.metadata], gos, params.frag_len)
         self.B_tot = int(len(gid_of_bin))
         self._bin_start = torch.as_tensor(bin_start, device=dev)
-        self._gid_of_bin = torch.as_tensor(gid_of_bin, device=dev)
+        self._genome_bins = torch.as_tensor(
+            genome_bins(gid_of_bin, n_ref_genomes), device=dev)
         self._gos = torch.as_tensor(gos, device=dev)
         s_max = max(params.sketch_cap, 1)
         self._lut = torch.as_tensor(identity_lut_full(params.kmer_size, s_max),
@@ -180,7 +312,7 @@ class StreamingCGI:
             if reduce_max is not None:
                 reduce_max(rows)
         finalize_rows(self._tab, self._counts, self._sums, fin,
-                      self._gid_of_bin, self.n_slots, self.n_rg, rows=rows)
+                      self._genome_bins, self.n_slots, rows=rows)
 
     def result(self):
         return self._counts.cpu().numpy(), self._sums.cpu().numpy()

@@ -86,9 +86,10 @@ def map_fallback_batch(frags: torch.Tensor, mapper: "jitmap.Mapper", params,
     ``refmodel.map_fragment`` (counted in ``stats["oracle_frags"]``).
 
     Returns (rows, mapper): rows is a dict of host arrays ``frag`` (row in
-    ``frags``), ``sid``, ``mean_pos`` (int64) and ``ident`` (float32), the
-    rows whose identity upper bound passes the cutoff (computeMap.hpp:
-    375-403); mapper is the one whose caps held the batch."""
+    ``frags``), ``sid``, ``shared``, ``sketch``, ``mean_pos`` (int64) and
+    ``ident`` (float32), the rows whose identity upper bound passes the
+    cutoff (computeMap.hpp:375-403); mapper is the one whose caps held the
+    batch."""
     while True:
         out = mapper.map_batch(frags)
         c = dict(zip(jitmap.COUNT_NAMES, out["counts"].tolist()))
@@ -123,5 +124,6 @@ def map_fallback_batch(frags: torch.Tensor, mapper: "jitmap.Mapper", params,
         stats["oracle_frags"] = stats.get("oracle_frags", 0) + len(over)
     ident, upper = identities_for(shared, sketch, params.kmer_size)
     keep = upper >= np.float32(params.percentage_identity)
-    return dict(frag=frag[keep], sid=sid[keep], mean_pos=pos[keep],
+    return dict(frag=frag[keep], sid=sid[keep], shared=shared[keep],
+                sketch=sketch[keep], mean_pos=pos[keep],
                 ident=ident[keep]), mapper

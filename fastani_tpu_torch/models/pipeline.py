@@ -26,15 +26,19 @@ Both paths take their index from ``reference_index``: built on the
 device, or restored with ``--loadIndex`` (which also sets the reference
 list, so it comes before anything counts the reference genomes), and
 saved with ``--saveIndex``.  ``run_fast`` shrinks hits_cap to the
-workload before its loop (``autotune_hits_cap``).  The multi-device runner
-(``parallel/runner.py``) reuses the pieces: ``tuned_mapper``,
-``map_batch_cgi``, ``redo_queries``, ``map_batch_rows``,
+workload before its loop (``autotune_hits_cap``).  With ``--profile DIR``
+(``params.profile_dir``) each path's mapping phase runs under
+``torch.profiler`` (``profiled``), which writes a Chrome trace into DIR.
+The multi-device runner (``parallel/runner.py``) reuses the pieces:
+``tuned_mapper``, ``map_batch_cgi``, ``redo_queries``, ``map_batch_rows``,
 ``rows_by_query``, ``fold_queries`` and ``write_results``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import sys
 import time
 from typing import Dict, List, Optional
@@ -345,6 +349,34 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+@contextlib.contextmanager
+def profiled(params: Parameters, dev: torch.device, stats: dict, log,
+             phase: str):
+    """With ``params.profile_dir``, the body runs under ``torch.profiler``
+    (CPU activity, and CUDA on a card) and its Chrome trace is written to
+    ``{profile_dir}/{phase}.pt.trace.json`` (path logged and kept in
+    ``stats["profile_trace"]``, the write's seconds in
+    ``stats["t_trace_export"]``); without it, the body just runs."""
+    if not params.profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield
+        _sync(dev)
+    t0 = time.time()
+    os.makedirs(params.profile_dir, exist_ok=True)
+    path = os.path.join(params.profile_dir, f"{phase}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    stats["profile_trace"] = path
+    stats["t_trace_export"] = time.time() - t0
+    log(f"INFO, fastani_tpu_torch, profiler trace written to {path}")
+
+
 def reference_index(params: Parameters, dev: torch.device, stats: dict,
                     log, ref_files=None, load_path: str = "",
                     save_path: str = "") -> ReferenceIndex:
@@ -495,9 +527,10 @@ def run_fast(params: Parameters, device="cuda",
 
     t0 = time.time()
     n_q = len(stream.paths)
-    counts, sums = map_queries_cgi_device(stream, index, params, mapper,
-                                          n_q, G, stats=stats)
-    stats["t_map_fold"] = time.time() - t0
+    with profiled(params, dev, stats, log, "map_fold"):
+        counts, sums = map_queries_cgi_device(stream, index, params, mapper,
+                                              n_q, G, stats=stats)
+        stats["t_map_fold"] = time.time() - t0      # before a trace's write
     log(f"INFO, fastani_tpu_torch, mapped {n_q} queries ({stream.F} "
         f"fragments) + device CGI in {stats['t_map_fold']:.2f}s")
 
@@ -541,8 +574,9 @@ def run(params: Parameters, device="cuda",
         stats["t_mapper_init"] = time.time() - t0
 
         t0 = time.time()
-        maps = map_queries_batched(stream, index, params, mapper, stats)
-        stats["t_map"] = time.time() - t0
+        with profiled(params, dev, stats, log, "map"):
+            maps = map_queries_batched(stream, index, params, mapper, stats)
+            stats["t_map"] = time.time() - t0       # before a trace's write
         log(f"INFO, fastani_tpu_torch, mapped {len(stream.paths)} queries "
             f"({stream.F} fragments) in {stats['t_map']:.2f}s")
         lengths = np.array([c.length for c in index.metadata], np.int64)

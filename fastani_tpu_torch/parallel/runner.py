@@ -68,18 +68,6 @@ class _Run:
                 yield r, q, slice(q * B, min((q + 1) * B, n))
 
 
-def _shard_mapper(params: Parameters, index: ReferenceIndex, n_local: int,
-                  B_local: int) -> jitmap.Mapper:
-    """One shard's map step for slices of B_local rows, in the JAX
-    runner's geometry: L2 units for max(4, int(1.7 G_local) + 8) candidate
-    regions a fragment, chunks of min(512, max(8, B_local)) units."""
-    uf = max(4, int(1.7 * n_local) + 8)
-    mapper = jitmap.Mapper(params, index, unit_factor=uf,
-                           unit_chunk=min(512, max(8, B_local)))
-    return mapper.with_caps(unit_cap=min(B_local * uf,
-                                         B_local * params.cand_cap))
-
-
 def _prepare(params: Parameters, n_r: Optional[int], n_q: Optional[int],
              dev: torch.device, stats: dict, log) -> _Run:
     params.finalize()
@@ -88,6 +76,9 @@ def _prepare(params: Parameters, n_r: Optional[int], n_q: Optional[int],
     log(f"INFO, fastani_tpu_torch, sharded run on a {plan.n_r}x{plan.n_q} "
         f"(r, q) mesh, process {rank} of {size}, backend "
         f"{distributed.backend()}, on {dev}")
+    if params.profile_dir:
+        log("INFO, fastani_tpu_torch, --profile traces single-device runs; "
+            "this sharded run writes no trace")
     shards = pmesh.build_shards(params, plan, dev, stats, log)
     # --loadIndex set the reference list: count the genomes only now
     n_local = {r: len(pmesh.shard_files(params.ref_sequences, plan.n_r, r))
@@ -111,7 +102,7 @@ def _prepare(params: Parameters, n_r: Optional[int], n_q: Optional[int],
     t0 = time.time()
     stream = pipeline.FragmentStream(params.query_sequences, params)
     B_local = -(-params.frag_batch // plan.n_q)
-    mappers = {r: _shard_mapper(params, shards[r], n_local[r], B_local)
+    mappers = {r: pmesh.shard_mapper(params, shards[r], n_local[r], B_local)
                for r in plan.rows if r in live}
     stats["t_mapper_init"] = time.time() - t0
     return _Run(plan, shards, n_local, mappers, stream, B_local)

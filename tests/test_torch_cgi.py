@@ -1,7 +1,8 @@
-"""The port's device CGI fold (update_tab, finalize_rows) against the JAX
-package's on the same packed batches: counts equal, sums within rtol 1e-6
-(float32 sums taken in another order); its host fold
-(``compute_cgi_arrays``) and ``identities_for`` bit-equal to the JAX
+"""The port's device CGI fold (update_tab, finalize_rows) and its one-shot
+``cgi_matrices`` against the JAX package's on the same rows: counts equal,
+sums within rtol 1e-6 (the JAX segment sums add in another order); the
+port's sums bit-equal to the reference's sequential float32 fold; its host
+fold (``compute_cgi_arrays``) and ``identities_for`` bit-equal to the JAX
 package's."""
 
 import numpy as np
@@ -48,10 +49,10 @@ def test_update_and_finalize_match_jax():
             tab_j, acc_cj, acc_sj = jcgi.finalize_rows(
                 tab_j, acc_cj, acc_sj, jnp.asarray(f), jnp.asarray(gid_of_bin),
                 n_slots, n_qg, n_rg)
-            device_cgi.finalize_rows(tab_t, acc_ct, acc_st,
-                                     torch.from_numpy(f.astype(np.int64)),
-                                     torch.from_numpy(gid_of_bin), n_slots,
-                                     n_rg)
+            device_cgi.finalize_rows(
+                tab_t, acc_ct, acc_st, torch.from_numpy(f.astype(np.int64)),
+                torch.from_numpy(device_cgi.genome_bins(gid_of_bin, n_rg)),
+                n_slots)
         if not qnos:
             continue
         n = int(rng.integers(U // 2, U))
@@ -133,3 +134,114 @@ def test_identities_for_matches_jax():
         for g, w in zip(got, want):
             assert g.dtype == np.float32
             np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32))
+
+
+def _sequential(values) -> np.float32:
+    """The reference's sum: a float32 left fold from 0."""
+    acc = np.float32(0.0)
+    for v in values:
+        acc = np.float32(acc + np.float32(v))
+    return acc
+
+
+def test_finalize_rows_fixed_order_sum():
+    """finalize_rows on a random (64, 40000) table of 7 genomes: counts
+    equal the JAX finalize_rows', sums within rtol 1e-6 of them and
+    bit-equal to each genome's sequential fold over its bins; a genome's
+    sum is the same bits when the table holds only its bins (a shard)."""
+    rng = np.random.default_rng(23)
+    n_rg, n_qg, B_tot = 7, 64, 40_000
+    gid_of_bin = np.sort(rng.integers(0, n_rg, B_tot)).astype(np.int32)
+    ident = rng.uniform(76.0, 100.0, (n_qg, B_tot)).astype(np.float32)
+    tab = np.where(rng.uniform(size=(n_qg, B_tot)) < 0.6,
+                   ident.view(np.int32), -1).astype(np.int32)
+    fin = np.arange(n_qg, dtype=np.int32)
+    _, jc, js = jcgi.finalize_rows(
+        jnp.asarray(tab), jnp.zeros((n_qg, n_rg), jnp.int32),
+        jnp.zeros((n_qg, n_rg), jnp.float32), jnp.asarray(fin),
+        jnp.asarray(gid_of_bin), n_qg, n_qg, n_rg)
+
+    def port(t, gob, G):
+        c = torch.zeros((n_qg, G), dtype=torch.int32)
+        sm = torch.zeros((n_qg, G), dtype=torch.float32)
+        device_cgi.finalize_rows(
+            torch.from_numpy(t.copy()), c, sm,
+            torch.from_numpy(fin.astype(np.int64)),
+            torch.from_numpy(device_cgi.genome_bins(gob, G)), n_qg)
+        return c.numpy(), sm.numpy()
+
+    c, sm = port(tab, gid_of_bin, n_rg)
+    np.testing.assert_array_equal(c, np.asarray(jc))
+    np.testing.assert_allclose(sm, np.asarray(js), rtol=1e-6)
+    for q in (0, 31, 63):
+        for g in range(n_rg):
+            row = tab[q, gid_of_bin == g]
+            want = _sequential(row[row >= 0].view(np.float32))
+            assert sm[q, g].view(np.int32) == want.view(np.int32), (q, g)
+    g = 3
+    cols = gid_of_bin == g
+    c3, s3 = port(tab[:, cols], np.zeros(cols.sum(), np.int32), 1)
+    np.testing.assert_array_equal(c3[:, 0], c[:, g])
+    np.testing.assert_array_equal(s3[:, 0].view(np.int32),
+                                  sm[:, g].view(np.int32))
+
+
+def _random_rows(rng, n, n_qg, n_seqs):
+    """tests/test_device_cgi.py's random rows."""
+    qno = rng.integers(0, n_qg, n).astype(np.int32)
+    qsid = rng.integers(0, 40, n).astype(np.int32)
+    sid = rng.integers(0, n_seqs, n).astype(np.int32)
+    sketch = rng.integers(100, 300, n).astype(np.int32)
+    shared = (sketch * rng.uniform(0.3, 1.0, n)).astype(np.int32)
+    pos = rng.integers(0, 200_000, n).astype(np.int32)
+    return qno, qsid, sid, shared, sketch, pos
+
+
+def test_cgi_matrices_match_jax():
+    """tests/test_device_cgi.py's rows (seed 7): counts equal to the JAX
+    cgi_matrices', sums within rtol 1e-6 of them; each pair's sum
+    bit-equal to the host fold's (``compute_cgi_arrays``: mean times
+    count is the fold's sum only up to rounding, so the mean is held)."""
+    rng = np.random.default_rng(7)
+    n_qg, n_rg, n_seqs, frag_len = 3, 4, 9, 3000
+    genome_of_seq = np.sort(rng.integers(0, n_rg, n_seqs)).astype(np.int32)
+    lut = device_cgi.identity_lut_full(16, 384)
+    rows = _random_rows(rng, 500, n_qg, n_seqs)
+    valid = rng.uniform(size=500) < 0.8
+    jc, js = jcgi.cgi_matrices(*(jnp.asarray(x) for x in rows),
+                               jnp.asarray(valid), jnp.asarray(genome_of_seq),
+                               jnp.asarray(lut), frag_len, n_qg, n_rg)
+    c, sm = device_cgi.cgi_matrices(
+        *(torch.from_numpy(x) for x in rows), torch.from_numpy(valid),
+        torch.from_numpy(genome_of_seq), torch.from_numpy(lut), frag_len,
+        n_qg, n_rg)
+    assert c.dtype == torch.int32 and sm.dtype == torch.float32
+    np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
+    np.testing.assert_allclose(sm.numpy(), np.asarray(js), rtol=1e-6)
+    assert c.sum() > 100
+
+    qno, qsid, sid, shared, sketch, pos = rows
+    ident = lut[sketch, shared]
+    for q in range(n_qg):
+        sel = (qno == q) & valid
+        res, _ = ani.compute_cgi_arrays(
+            sid[sel].astype(np.int64), qsid[sel].astype(np.int64),
+            pos[sel].astype(np.int64), ident[sel], genome_of_seq, frag_len,
+            q, 100, want_visual=False)
+        for r in res:
+            assert c[q, r.ref_genome] == r.count_seq
+            mean = np.float32(sm[q, r.ref_genome].numpy()
+                              / np.float32(r.count_seq))
+            assert mean.view(np.int32) == np.float32(r.identity).view(np.int32)
+
+
+def test_cgi_matrices_all_invalid():
+    lut = torch.from_numpy(device_cgi.identity_lut_full(16, 384))
+    z = torch.zeros(16, dtype=torch.int32)
+    for n in (16, 0):
+        c, sm = device_cgi.cgi_matrices(
+            z[:n], z[:n], z[:n], z[:n], z[:n], z[:n],
+            torch.zeros(n, dtype=torch.bool), torch.zeros(4, dtype=torch.int32),
+            lut, 3000, 2, 2)
+        assert c.shape == (2, 2) and int(c.sum()) == 0
+        assert float(sm.sum()) == 0.0

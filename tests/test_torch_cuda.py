@@ -364,10 +364,9 @@ def test_mesh_card_matches_cpu(cuda_device, tmp_path, monkeypatch, exact):
 
 def test_save_load_card(cuda_device, tmp_path, monkeypatch):
     """An index built on the card, saved and loaded back onto the card,
-    holds the same entries; --loadIndex without --rl writes the exact TSV
-    of the run that saved it (the exact path: the fast path's device fold
-    adds float32 identities with atomics, so its last printed digit may
-    differ between two card runs)."""
+    holds the same entries; --loadIndex without --rl writes the TSV of the
+    run that saved it, byte for byte, on the exact path and on the fast
+    path (whose device fold sums in a fixed order)."""
     from fastani_tpu_torch import cli
 
     q, r = _golden_fixtures(tmp_path, monkeypatch)
@@ -382,8 +381,87 @@ def test_save_load_card(cuda_device, tmp_path, monkeypatch):
                  "occ_wpos"):
         np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
     pathlib.Path("refs.txt").write_text("\n".join(r) + "\n")
-    assert cli.main(["-q", q[0], "--rl", "refs.txt", "-o", "fresh.txt",
-                     "--saveIndex", "cli.npz", "--exact"]) == 0
-    assert cli.main(["-q", q[0], "--loadIndex", "cli.npz", "-o",
-                     "loaded.txt", "--exact"]) == 0
-    assert open("fresh.txt").read() == open("loaded.txt").read() != ""
+    for path in (["--exact"], []):
+        assert cli.main(["-q", q[0], "--rl", "refs.txt", "-o", "fresh.txt",
+                         "--saveIndex", "cli.npz"] + path) == 0
+        assert cli.main(["-q", q[0], "--loadIndex", "cli.npz", "-o",
+                         "loaded.txt"] + path) == 0
+        assert open("fresh.txt").read() == open("loaded.txt").read() != ""
+
+
+def test_finalize_rows_reproducible_on_card(cuda_device):
+    """finalize_rows on a random (64, 40000) table of 7 genomes, ten calls
+    on the card: bit-identical sums, and the CPU's bits."""
+    from fastani_tpu_torch.models import device_cgi
+
+    rng = np.random.default_rng(23)
+    n_rg, n_qg, B_tot = 7, 64, 40_000
+    gid_of_bin = np.sort(rng.integers(0, n_rg, B_tot))
+    ident = rng.uniform(76.0, 100.0, (n_qg, B_tot)).astype(np.float32)
+    tab = np.where(rng.uniform(size=(n_qg, B_tot)) < 0.6,
+                   ident.view(np.int32), -1).astype(np.int32)
+    fin = torch.arange(n_qg)
+    bins = torch.as_tensor(device_cgi.genome_bins(gid_of_bin, n_rg))
+
+    def fold(dev):
+        c = torch.zeros((n_qg, n_rg), dtype=torch.int32, device=dev)
+        sm = torch.zeros((n_qg, n_rg), dtype=torch.float32, device=dev)
+        device_cgi.finalize_rows(torch.tensor(tab, device=dev), c, sm,
+                                 fin.to(dev), bins.to(dev), n_qg)
+        return c.cpu(), sm.cpu().view(torch.int32)
+
+    runs = [fold(cuda_device) for _ in range(10)]
+    want = fold(torch.device("cpu"))
+    for c, bits in runs:
+        assert torch.equal(c, want[0]) and torch.equal(bits, want[1])
+
+
+def test_cgi_matrices_card_matches_cpu(cuda_device):
+    """cgi_matrices on 200000 random rows (8 query genomes, 12 reference
+    genomes of 3 contigs): counts and sum bits equal on the card and the
+    CPU, and over three card calls."""
+    from fastani_tpu_torch.models import device_cgi
+
+    rng = np.random.default_rng(31)
+    n, Gq, Gr = 200_000, 8, 12
+    sketch = rng.integers(100, 320, n)
+    cols = [rng.integers(0, Gq, n), rng.integers(0, 400, n),
+            rng.integers(0, 3 * Gr, n),
+            (sketch * rng.uniform(0.3, 1.0, n)).astype(np.int64), sketch,
+            rng.integers(0, 3_000_000, n)]
+    valid = rng.uniform(size=n) < 0.9
+    gos = np.repeat(np.arange(Gr), 3)
+    lut = device_cgi.identity_lut_full(16, 320)
+
+    def run(dev):
+        t = lambda a: torch.as_tensor(a, device=dev)
+        c, sm = device_cgi.cgi_matrices(*map(t, cols), t(valid), t(gos),
+                                        t(lut), 3000, Gq, Gr)
+        return c.cpu(), sm.cpu().view(torch.int32)
+
+    want = run(torch.device("cpu"))
+    assert int(want[0].sum()) > 10_000
+    for _ in range(3):
+        c, bits = run(cuda_device)
+        assert torch.equal(c, want[0]) and torch.equal(bits, want[1])
+
+
+def test_sharded_step_card_matches_cpu(cuda_device, tmp_path, monkeypatch):
+    """make_sharded_step at 2x2 on the golden query multi.fa against
+    strainA and strainB: counts and sum bits equal on the card and the
+    CPU."""
+    from fastani_tpu_torch.parallel import distributed, mesh as pmesh
+
+    q, r = _golden_fixtures(tmp_path, monkeypatch)
+
+    def run(dev):
+        p = Parameters(ref_sequences=r).finalize()
+        frags = pipeline.load_query_fragments(q[0], p).frags
+        shards = pmesh.build_shards(p, distributed.plan(2, 2), dev, {},
+                                    lambda m: None)
+        step = pmesh.make_sharded_step(p, shards, 2, 2, -(-len(frags) // 2))
+        return [t.cpu() for t in step(frags)]
+
+    got, want = run(cuda_device), run(torch.device("cpu"))
+    assert torch.equal(got[1], want[1]) and int(want[1].min()) > 0
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))

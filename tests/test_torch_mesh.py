@@ -2,9 +2,12 @@
 ``--coordinator``) on the CPU against the JAX package's and against the
 port's single-device paths: the fast path's counts and ANI, the exact
 path's bytes, the per-shard sanity check, per-shard index files both
-ways, and a run over two gloo processes.  Small batches (``frag_batch``
-8) split each query genome's fragments over the q cells, so the q-merge
-of the device CGI decides the fast path's counts."""
+ways, and a run over two gloo processes, which reads only its own shards'
+reference files.  Small batches (``frag_batch`` 8) split each query
+genome's fragments over the q cells, so the q-merge of the device CGI
+decides the fast path's counts.  The per-query sharded step
+(``mesh.make_sharded_step``) against the JAX package's on its 8-device CPU
+mesh (tests/conftest.py)."""
 
 import contextlib
 import io
@@ -19,8 +22,9 @@ import torch
 
 from fastani_tpu_torch import cli
 from fastani_tpu_torch.config import Parameters
-from fastani_tpu_torch.models import pipeline
-from fastani_tpu_torch.parallel import runner
+from fastani_tpu_torch.io import fasta
+from fastani_tpu_torch.models import glue, pipeline
+from fastani_tpu_torch.parallel import distributed, mesh as pmesh, runner
 from tests import synth
 
 # one intra-op thread: the suite runs several xdist workers per core, and
@@ -198,13 +202,19 @@ run(p, 3, 3, coordinator={coord!r}, num_processes=2,
 
 
 @pytest.mark.parametrize("exact", [False, True], ids=["fast", "exact"])
-def test_two_gloo_processes_match_one(world, tmp_path, exact):
+def test_two_gloo_processes_match_one(world, tmp_path, tmp_path_factory,
+                                      exact):
     """A 3x3 run over two gloo processes (process 0 runs cells (0, *) and
     (1, 0-1), process 1 runs (1, 2) and (2, *): shard 1's q-merge crosses
     the processes) writes the bytes of the one-process run.  Both
     processes build shard 1, and only process 0 saves it (--saveIndex);
-    the one-process run loads the three shard files the two wrote."""
+    the one-process run loads the three shard files the two wrote.
+    Process 1 never parses a reference file of shard 0 (files 0 and 3),
+    which it does not run (tests/test_multihost.py's check of the JAX
+    runner; process 0 reads every file for the output writers)."""
     _, refs, queries = world
+    traces = [str(tmp_path_factory.mktemp("reads") / f"p{i}.log")
+              for i in range(2)]
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         coord = f"127.0.0.1:{s.getsockname()[1]}"
@@ -213,7 +223,8 @@ def test_two_gloo_processes_match_one(world, tmp_path, exact):
                                   out=out2, exact=exact, coord=coord,
                                   prefix=prefix)
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO)
-    procs = [subprocess.Popen([sys.executable, "-c", code, str(i)], env=env,
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(i)],
+                              env=dict(env, FASTANI_TRACE_READS=traces[i]),
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE)
              for i in range(2)]
     try:
@@ -239,3 +250,79 @@ def test_two_gloo_processes_match_one(world, tmp_path, exact):
     suffixes = ("", ".matrix", ".visual") if exact else ("", ".matrix")
     assert _read(out2, suffixes) == _read(p1.out_file_name, suffixes)
     assert _read(out2, ("",))[0].count("\n") == 8
+
+    reads = [set(open(t).read().split()) for t in traces]
+    assert set(refs) | set(queries) <= reads[0]
+    assert refs[2] in reads[1] and set(queries) <= reads[1]
+    assert refs[0] not in reads[1] and refs[3] not in reads[1]
+
+
+def _jax_sharded_step(refs, frags, n_r, n_q):
+    """tests/test_mesh.py's JAX ``make_sharded_step`` on one query
+    genome's fragments: (sum_ident, count) (n_r, G)."""
+    import jax.numpy as jnp
+
+    from fastani_tpu.models import jitmap as jjitmap
+    from fastani_tpu.ops import stats as jstats
+    from fastani_tpu.parallel import mesh as jmesh
+    from tests.test_mapping_parity import make_params
+
+    params = make_params(frag_len=1000)
+    params.frag_batch, params.sketch_cap, params.hits_cap = 8, 256, 1024
+    params.cand_cap, params.l2_entry_cap = 8, 256
+    sidx = jmesh.build_sharded_index(params, refs, n_r)
+    F, L = frags.shape
+    F_local = -(-F // n_q)
+    padded = np.zeros((n_q * F_local, L), np.uint8)
+    padded[:F] = frags
+    cfg = jjitmap.MapperConfig.from_params(params, sidx.freq_threshold,
+                                           unit_factor=8, unit_chunk=8)
+    cfg = cfg.__class__(**{**cfg.__dict__, "unit_cap": F_local * 8,
+                           "unit_chunk": 8})
+    s_max, k = params.sketch_cap, params.kmer_size
+    step = jmesh.make_sharded_step(
+        cfg, jmesh.make_mesh(n_r, n_q), s_max, k, params.percentage_identity,
+        params.frag_len, sidx.max_local_genomes)
+    sums, counts = step(
+        jnp.asarray(padded.reshape(n_q, F_local, L)),
+        *(jnp.asarray(getattr(sidx, a)) for a in (
+            "occ_hash", "occ_sid", "occ_wpos", "mi_hash", "mi_sid",
+            "mi_wpos", "seq_start", "genome_of_seq", "n_occ")),
+        jnp.asarray(jstats.min_hits_lut(k, params.percentage_identity,
+                                        s_max)),
+        jnp.asarray(jjitmap.gate_lut_np(k, params.percentage_identity,
+                                        s_max)),
+        jnp.asarray(jmesh.point_identity_lut(s_max, k)))
+    return np.asarray(sums), np.asarray(counts)
+
+
+@pytest.mark.parametrize("n_r,n_q,caps", [
+    (2, 2, {}), (2, 4, {}), (2, 4, {"l2_entry_cap": 128})],
+    ids=["2x2", "2x4", "2x4-l2cap128"])
+def test_sharded_step_matches_jax(world, monkeypatch, n_r, n_q, caps):
+    """The port's make_sharded_step on the query genome (24 fragments of
+    1000 bp, w 24 as in tests/test_mesh.py) against the JAX step: counts
+    equal, ANI within 1e-3.  A fragment over a cap is mapped again by the
+    fallback: at l2_entry_cap 128 every mapped fragment (the default cap,
+    256, holds all but one)."""
+    wd, refs, _ = world
+    (_, seq), = fasta.read_sequences(str(wd / "query.fa"))
+    F = len(seq) // 1000
+    frags = seq[:F * 1000].reshape(F, 1000)
+    js, jc = _jax_sharded_step(refs, frags, n_r, n_q)
+
+    params = Parameters(frag_len=1000, window_size=24,
+                        ref_sequences=list(refs), **caps)
+    shards = pmesh.build_shards(params, distributed.plan(n_r, n_q),
+                                torch.device("cpu"), {}, lambda m: None)
+    step = pmesh.make_sharded_step(params, shards, n_r, n_q, -(-F // n_q))
+    fallbacks = []
+    map_fallback = glue.map_fallback_batch
+    monkeypatch.setattr(glue, "map_fallback_batch", lambda *a, **kw: (
+        fallbacks.append(1), map_fallback(*a, **kw))[1])
+    sums, counts = (t.numpy() for t in step(frags))
+    assert fallbacks or not caps
+    assert counts.shape == jc.shape == (n_r, 2)
+    np.testing.assert_array_equal(counts, jc)
+    assert (counts > 0).all()
+    np.testing.assert_allclose(sums / counts, js / jc, atol=1e-3)
