@@ -6,7 +6,7 @@
 Phases, one JSON line each; any failure exits non-zero:
 
 1. device: name, count, ``nvidia-smi`` name and power limit; build the
-   four CUDA sources (one nvcc each, all at once).
+   five CUDA sources (one nvcc each, all at once).
 2. golden: tests/test_golden_frozen.py's fixtures (seed 2024) through the
    port's CLI on the card, against tests/golden/one2one.txt and multi.txt:
    the fast path (same rows, equal counts, ANI within 0.1), then the exact
@@ -16,7 +16,8 @@ Phases, one JSON line each; any failure exits non-zero:
 3. main path: bench.py's ``mid`` workload (32 genomes x 3 Mbp,
    all-vs-all, seed 123) through the port's CLI on the card; phase times,
    genome-pairs/s, peak memory, the counters' maxima, every kernel's
-   launches in this run (zeroed just before it).
+   launches in this run (zeroed just before it), the map step's CUDA
+   graphs (count, capture seconds, pool bytes).
    native_io: the port's native FASTA parser (built from the checkout by
    g++) on mid's 32 FASTAs and a gzipped copy of one: it ran (no Python
    parser), its names and bytes equal the Python parser's; both readers'
@@ -38,6 +39,13 @@ Phases, one JSON line each; any failure exits non-zero:
    cgi_matrices: ``device_cgi.cgi_matrices`` on the card over this run's
    rows (every batch's valid rows, kept by ``exact_rows``) against its
    host fold: counts equal, means within rtol 1e-6; its seconds.
+   graphs: mid through the fast path and the exact path again with every
+   mapper eager (``graphs=False``): TSV, .matrix and .visual byte-equal
+   to phases 3 and 3c (which ran the map step as CUDA graphs), every
+   kernel's launches equal; per path and mode the wall, graphs, capture
+   seconds, pool bytes, peak device bytes, and the host's launches and
+   copies for one mid batch (``torch.profiler`` on batch 2, after batch
+   0 warmed the key up and batch 1 captured it).
 3d. sanity and oracle: ``-s`` on a pure-A query against an 8A+1T repeat
    reference writes no row; then the exact path on the golden fixtures at
    ``l2_entry_cap`` 128 with the kernels' L2 span limit patched down to
@@ -50,7 +58,9 @@ Phases, one JSON line each; any failure exits non-zero:
    to its plain version at each of this run's call sites, on the inputs
    the run gave it (``kernel_sites``: the first call at each of up to three
    shapes a site), and the sites' launches adding up to the run's
-   (``check_sites``); mid's first 16 query genomes against all 32
+   (``check_sites``); the same run with the map step's CUDA graphs (the
+   others above are eager): files byte-equal, launches equal, its graphs,
+   pool and peak bytes; mid's first 16 query genomes against all 32
    through ``--mesh 2x2 --exact``: the TSV byte-equal to phase 3c's lines
    of those queries; the golden
    fixtures through ``--mesh 2x2 --exact --visualize -s --matrix``: the
@@ -75,13 +85,15 @@ Phases, one JSON line each; any failure exits non-zero:
    profile: ``--profile`` through the CLI, the goldens on both paths
    (files byte-equal to phase 2's), then mid's first 8 query genomes
    against all 32 on the fast path (4 of mid's 16 batches; TSV byte-equal
-   to phase 3's lines of those queries, every kernel launched and named in
-   the trace): its wall, the trace's window, summed device kernel time,
-   idle share and top kernels.
-4. kernels: K1-K3 at each of their main-path call sites, on the inputs
-   the path itself gives them: ``run_fast`` on the first three mid genomes
-   against all 32 (the mid index, two batches) with the wrappers wrapped,
-   keeping each call site's first inputs and counting its calls.  Each
+   to phase 3's lines of those queries, every kernel launched, and each
+   kernel's count in the trace equal to its launches in the traced window,
+   replayed graphs' included): its wall, the trace's window, summed device
+   kernel time, idle share and top kernels.
+4. kernels: K1-K3 and the fold at each of their main-path call sites, on
+   the inputs the path itself gives them: ``run_fast`` on the first three
+   mid genomes against all 32 (the mid index, two batches) with the
+   wrappers wrapped and the map step eager, keeping each call site's
+   first inputs and counting its calls.  Each
    site's launches on mid (index-build calls, plus calls per batch times
    phase 3's batches) must sum to phase 3's count of its kernel.  K4 sorts
    int32 words with bit 31 set at the L2 chunk's shape; K5 walks real
@@ -96,9 +108,14 @@ Phases, one JSON line each; any failure exits non-zero:
    (``cuobjdump -sass`` of ``fa_winnow_murmur_probe``: every integer
    instruction one operation, a multiply-add two, as the float32 rate
    counts an FMA); its line also prints the bound by the formula of the
-   row-per-block kernel it replaced (``bound_row_kernel_ms``).
+   row-per-block kernel it replaced (``bound_row_kernel_ms``).  The fold
+   (``csrc/fold.cu``, no Pallas kernel: the JAX fold is XLA code) also
+   runs at FIN 4 against 32 genomes, the longest of 1008, 2000 and 4000
+   bins; its library call is ``torch.segment_reduce`` (sums only).
 
-Then the kernels table (each kernel's launches on mid through the fast
+Phases that wrap the kernels' wrappers (``kernel_sites``) build their
+mappers eager: a graph replay calls no wrapper.  Then the kernels table
+(each kernel's launches on mid through the fast
 path, ``launches``, through the exact path, ``launches_exact``, through
 ``--mesh 2x2``, ``launches_mesh``, with the largest error of its mesh
 sites, ``max_abs_err_mesh``, under ``--profile``, ``launches_profile``,
@@ -146,6 +163,8 @@ REPLACES = {
     "sort": "fastani_tpu/ops/pallas_sort.py:28 (_sort_block_kernel)",
     "sort_kv": "fastani_tpu/ops/pallas_sort.py:116 (_sort_kv_block_kernel)",
     "walk": "fastani_tpu/models/l2walk.py:298 (_walk_pallas_call)",
+    # no Pallas kernel: the JAX fold is XLA code (finalize_rows)
+    "fold": "fastani_tpu/models/device_cgi.py:194 (finalize_rows, XLA)",
 }
 SOURCE = {
     "winnow": "fastani_tpu_torch/csrc/winnow.cu",
@@ -153,7 +172,11 @@ SOURCE = {
     "sort": "fastani_tpu_torch/csrc/sort.cu",
     "sort_kv": "fastani_tpu_torch/csrc/sort.cu",
     "walk": "fastani_tpu_torch/csrc/walk.cu",
+    "fold": "fastani_tpu_torch/csrc/fold.cu",
 }
+# kernels only the fast path's device CGI launches (the exact path folds
+# on the host, make_sharded_step through cgi_matrices)
+FAST_ONLY = ("fold",)
 
 # K1-K3's call sites on the main path: (kernel, calling function, rank of
 # the call's line among that function's calls of the kernel) -> label
@@ -169,9 +192,11 @@ SITES = {
     ("sort", "l1_candidates", 0): "L1 hits",
     ("sort_kv", "build_events", 0): "L2 events",
     ("walk", "l2_walk_units", 0): "L2 walk",
+    ("fold", "finalize_rows", 0): "finalize",
 }
 # the site whose numbers stand for the kernel in the kernels table
-TABLE_SITE = {"winnow": "sketch", "compact": "L1 leaders", "sort": "L1 hits"}
+TABLE_SITE = {"winnow": "sketch", "compact": "L1 leaders", "sort": "L1 hits",
+              "fold": "finalize"}
 
 
 T0 = time.time()
@@ -235,10 +260,14 @@ def time_ms(torch, fn, reps: int, warmup: int = 1, graph: bool = False):
 
 
 def max_abs_err(torch, xs, ys) -> float:
+    """The largest difference of two outputs' integers; float32 outputs
+    are compared as their bits (0: the same floats, bit for bit)."""
     err = 0.0
     for x, y in zip(xs, ys):
         if x.shape != y.shape:
             raise AssertionError(f"shape {tuple(x.shape)} != {tuple(y.shape)}")
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
         d = (x.to(torch.int64) - y.to(torch.int64)).abs()
         err = max(err, float(d.max()) if d.numel() else 0.0)
     return err
@@ -406,14 +435,34 @@ def kv_inputs(torch, dev):
 
 def wrapper_fns() -> dict:
     """kernel -> (module, name) of the wrapper that launches it."""
-    from fastani_tpu_torch.models import l2walk
+    from fastani_tpu_torch.models import device_cgi, l2walk
     from fastani_tpu_torch.ops import compact, sort, winnow
 
     return {"winnow": (winnow, "winnow_rows"),
             "compact": (compact, "compact_rows"),
             "sort": (sort, "sort_rows_u32"),
             "sort_kv": (sort, "sort_rows_u32_kv"),
-            "walk": (l2walk, "walk")}
+            "walk": (l2walk, "walk"),
+            "fold": (device_cgi, "fold_rows")}
+
+
+@contextlib.contextmanager
+def eager_mappers():
+    """Every ``Mapper`` built inside runs its map step eagerly
+    (``graphs=False``): a graph replay calls no wrapper, and a capture
+    forbids the host copies of ``kernel_sites``."""
+    from fastani_tpu_torch.models import jitmap
+
+    init = jitmap.Mapper.__init__
+
+    def eager_init(self, *args, **kw):
+        init(self, *args, **{**kw, "graphs": False})
+
+    jitmap.Mapper.__init__ = eager_init
+    try:
+        yield
+    finally:
+        jitmap.Mapper.__init__ = init
 
 
 def map_tensors(torch, fn, x):
@@ -448,7 +497,8 @@ def kernel_sites(torch, kernels, shapes_per_site: int = 1):
     the site's calls made, "inputs": [(args, kw)] of the site's first call
     at each of its first ``shapes_per_site`` input shapes}.  The inputs are
     copied to the host (a few synchronising copies: the device's peak
-    memory is the run's own)."""
+    memory is the run's own); mappers built inside run eagerly
+    (``eager_mappers``)."""
     from fastani_tpu_torch.ops import cuda as kc
 
     fns = wrapper_fns()
@@ -483,7 +533,8 @@ def kernel_sites(torch, kernels, shapes_per_site: int = 1):
     for kernel in kernels:
         wrap(kernel, *fns[kernel])
     try:
-        yield seen
+        with eager_mappers():
+            yield seen
     finally:
         for mod, name, orig in origs:
             setattr(mod, name, orig)
@@ -506,16 +557,17 @@ def site_labels(seen: dict) -> dict:
 
 
 def capture_sites(torch, paths):
-    """The inputs K1-K3 get on the main path: ``run_fast`` on the first
-    three of ``paths`` against all of them, with each kernel's wrapper
-    wrapped.  Returns ({(kernel, site): {"args", "kw", "calls",
+    """The inputs K1-K3 and the fold get on the main path: ``run_fast`` on
+    the first three of ``paths`` against all of them, with each kernel's
+    wrapper wrapped.  Returns ({(kernel, site): {"args", "kw", "calls",
     "per_batch"}}, batches): each call site's first inputs (on the card)
-    and its calls (the index build's, or over all batches)."""
+    and its calls (the index build's, or over all batches; the fold closes
+    query genomes once a batch after the first, and at the end)."""
     from fastani_tpu_torch.config import Parameters
     from fastani_tpu_torch.models import pipeline
 
     stats = {}
-    with kernel_sites(torch, ("winnow", "compact", "sort")) as seen:
+    with kernel_sites(torch, ("winnow", "compact", "sort", "fold")) as seen:
         pipeline.run_fast(Parameters(ref_sequences=paths,
                                      query_sequences=paths[:3]),
                           device="cuda", log=lambda m: None, stats=stats)
@@ -571,7 +623,7 @@ def check_sites(torch, path: str, seen: dict, launches: dict) -> dict:
 
 def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
     from fastani_tpu_torch.config import Parameters, scale_caps
-    from fastani_tpu_torch.models import l2walk
+    from fastani_tpu_torch.models import device_cgi, l2walk
     from fastani_tpu_torch.ops import compact, sort, winnow
     from fastani_tpu_torch.ops import cuda as kc
     from fastani_tpu_torch.ops.xputils import UMAX
@@ -584,7 +636,7 @@ def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
     results = {}
 
     def record(name, site, shape, outs_k, outs_p, fn_k, fn_p, nbytes, nops,
-               fn_lib=None, reps=20, plain_reps=3, **extra):
+               fn_lib=None, reps=20, plain_reps=3, lib_graph=True, **extra):
         err = max_abs_err(torch, outs_k, outs_p)
         if err != 0:
             raise AssertionError(f"{name} at {site} {shape}: kernel differs "
@@ -592,7 +644,8 @@ def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
                                  f"{err})")
         ms = time_ms(torch, fn_k, reps, graph=True)
         plain_ms = time_ms(torch, fn_p, plain_reps, warmup=0)
-        lib_ms = time_ms(torch, fn_lib, reps, graph=True) if fn_lib else None
+        lib_ms = (time_ms(torch, fn_lib, reps, graph=lib_graph)
+                  if fn_lib else None)
         b_ms, b_by = bound(nbytes, nops)
         row = dict(name=name, site=site, shape=shape, max_abs_err=err,
                    kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -600,7 +653,32 @@ def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
         emit({"phase": "kernel", **row})
         results[(name, site)] = row
 
-    # K1-K3 on the inputs of their call sites; launches on mid per site
+    def record_fold(site, rows, ranges, **extra):
+        """The fold on (FIN, B_tot) rows: bytes, the rows and the genomes'
+        (first bin, bin count) int32 read once and both (FIN, Gr) outputs
+        written once; two operations a bin (the occupancy test and the
+        add).  Library: one ``torch.segment_reduce`` of the masked
+        identities over each genome's bins (sums only, in its own order;
+        it reads lengths on the host, so it is timed outside a graph)."""
+        FIN, B_tot = rows.shape
+        Gr = ranges.shape[1]
+        occ = rows >= 0
+        masked = torch.where(occ, rows.view(torch.float32), 0.0)
+        lengths = ranges[1].long().expand(FIN, Gr).contiguous()
+        run_k = lambda: device_cgi.fold_rows(rows, ranges)
+        run_p = lambda: device_cgi.fold_rows_plain(rows, ranges)
+        record("fold", site, [FIN, B_tot, Gr], list(run_k()), list(run_p()),
+               run_k, run_p,
+               nbytes=4 * FIN * B_tot + 8 * Gr + 8 * FIN * Gr,
+               nops=2 * FIN * B_tot,
+               fn_lib=lambda: torch.segment_reduce(masked, "sum",
+                                                   lengths=lengths, axis=1),
+               lib_graph=False, plain_reps=1,
+               longest_bins=int(lengths.max()),
+               occupied_share=float(occ.float().mean()), **extra)
+
+    # K1-K3 and the fold on the inputs of their call sites; launches on
+    # mid per site
     sites, cap_batches = capture_sites(torch, mid_paths)
     per_kernel = {}
     launches = {}
@@ -645,6 +723,9 @@ def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
                    bound_row_kernel_ms=old_ms, bound_row_kernel_by=old_by,
                    murmur_sass=murmur,
                    tiles=list(winnow.tile_geometry(seg)))
+        elif kernel == "fold":
+            rows, ranges = a
+            record_fold(site, rows, ranges, launches_mid=n_mid)
         elif kernel == "compact":
             flags, pays = a[0], a[1]
             width = kw.get("width", a[2] if len(a) > 2 else flags.shape[1])
@@ -718,6 +799,18 @@ def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
                nbytes=n_sum * 24 + Uw * 20,
                nops=n_sum * WALK_OPS_PER_EVENT, reps=20, plain_reps=1,
                n_ev_mean=n_sum / Uw, n_ev_max=int(n_ev.max()))
+    # the fold at FIN 4 against 32 reference genomes, the last stretched
+    # to 1008, 2000 and 4000 bins (about 3, 6 and 12 Mbp), 60% occupied
+    rng = np.random.default_rng(7)
+    for longest in (1008, 2000, 4000):
+        n_bins = [1008] * 31 + [longest]
+        B_tot = sum(n_bins)
+        ident = rng.uniform(76.0, 100.0, (4, B_tot)).astype(np.float32)
+        rows = np.where(rng.uniform(size=(4, B_tot)) < 0.6,
+                        ident.view(np.int32), -1).astype(np.int32)
+        record_fold(f"{longest} bins", torch.as_tensor(rows, device=dev),
+                    torch.as_tensor(device_cgi.genome_bins(
+                        np.repeat(np.arange(32), n_bins), 32), device=dev))
     return {**{k: results[(k, s)] for k, s in TABLE_SITE.items()},
             "sort_kv": results[("sort_kv", "L2 events")],
             "walk": results[("walk", f"U {U}")]}
@@ -917,6 +1010,7 @@ def run_exact_mid(torch, n_genomes: int):
     with open(visual, "rb") as f:
         n_visual = sum(1 for _ in f)
     visual_bytes = visual.stat().st_size
+    visual_sha = file_sha256(visual)
     visual.unlink()
     n_pairs = n_genomes * n_genomes
     dev_max = max((abs(float(got[k][0]) - float(want[k][0]))
@@ -936,14 +1030,16 @@ def run_exact_mid(torch, n_genomes: int):
           "t_write_s": stats["t_write"],
           "map_fold_s": stats["t_map"] + stats["t_fold"],
           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          **graph_numbers(stats),
           "batches": stats["batches"],
           "fallback_frags": stats["fallback_frags"],
           "oracle_frags": stats["oracle_frags"], "launches": launches,
           "tsv_rows": len(got), "max_ani_diff_vs_fast": dev_max,
           "byte_equal_fast": same_fast,
           "visual_lines": n_visual, "visual_bytes": visual_bytes,
-          "mapped_fragments": mapped})
-    missing = [k for k, v in launches.items() if v <= 0]
+          "visual_sha256": visual_sha, "mapped_fragments": mapped})
+    missing = [k for k, v in launches.items()
+               if v <= 0 and k not in FAST_ONLY]
     if missing:
         raise AssertionError(f"exact: kernels not launched: {missing}")
     if stats["fallback_frags"]:
@@ -964,7 +1060,156 @@ def run_exact_mid(torch, n_genomes: int):
     if n_visual != mapped:
         raise AssertionError(f"exact: {n_visual} .visual lines for "
                              f"{mapped} mapped fragments")
-    return launches, kept
+    return launches, kept, {"wall_s": wall, **graph_numbers(stats),
+                            "t_map_s": stats["t_map"],
+                            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                            "batches": stats["batches"],
+                            "visual_sha256": visual_sha}
+
+
+# ---------------------------------------------------------------------------
+# phase graphs: the map step as CUDA graphs against the eager step
+# ---------------------------------------------------------------------------
+
+def file_sha256(path) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 22), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def graph_numbers(stats: dict) -> dict:
+    """A path's graphs (``Mapper.graph_stats`` in its stats)."""
+    return {"graphs": stats["graphs"], "t_capture_s": stats["t_capture"],
+            "graph_pool_bytes": stats["graph_pool_bytes"]}
+
+
+def host_calls(torch, fn) -> dict:
+    """The host's launch calls (CUDA API calls whose name holds
+    ``Launch``: kernels, graphs) and memory copies while ``fn`` runs, by
+    name, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    calls = {}
+    # the raw events: key_averages would build a Python event tree first
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if any(w in name for w in ("Launch", "Memcpy", "Memset")):
+            calls[name] = calls.get(name, 0) + 1
+    return calls
+
+
+def batch_host_calls(torch, paths) -> dict:
+    """The host's launches for one mid batch on each path, with graphs and
+    eagerly: the index, a mapper as ``run_fast`` makes it, batches 0 and 1
+    (with graphs: the key's eager warm-up, then its capture and first
+    replay), then batch 2 under the profiler through
+    ``pipeline.map_batch_cgi`` (fast: map step, counts read, CGI update)
+    and ``pipeline.map_batch_rows`` (exact: map step, rows read).
+    ``seconds`` splits the function's own wall."""
+    from fastani_tpu_torch.config import Parameters, scale_caps
+    from fastani_tpu_torch.models import device_cgi, pipeline
+
+    t0 = time.time()
+    seconds = {}
+    p = Parameters(query_sequences=paths, ref_sequences=paths).finalize()
+    index = pipeline.reference_index(p, torch.device("cuda"), {},
+                                     lambda m: None)
+    scale_caps(len(paths), p)
+    stream = pipeline.FragmentStream(paths, p)
+    B = p.frag_batch
+    batches = [stream.make_batch(b0, B) for b0 in (0, B, 2 * B)]
+    out = {"seconds": seconds}
+    seconds["index_and_batches"] = time.time() - t0
+    for mode in ("graphs", "eager"):
+        t0 = time.time()
+        with (eager_mappers() if mode == "eager" else
+              contextlib.nullcontext()):
+            mapper = pipeline._make_mapper(p, index)
+        cgi = device_cgi.StreamingCGI(index, p, len(paths), len(paths),
+                                      n_slots=4, frag_cap=B)
+        st, redo = {}, set()
+        fast = lambda b: pipeline.map_batch_cgi(*b, mapper, cgi, st, redo)
+        exact = lambda b: pipeline.map_batch_rows(*b, mapper, mapper, p, st)
+        fast(batches[0])
+        fast(batches[1])
+        torch.cuda.synchronize()
+        seconds[f"mapper_and_batches01_{mode}"] = time.time() - t0
+        for path, fn in (("fast", fast), ("exact", exact)):
+            t0 = time.time()
+            calls = host_calls(torch, lambda: fn(batches[2]))
+            seconds[f"profiled_{path}_{mode}"] = time.time() - t0
+            out[(path, mode)] = {
+                "launches": sum(n for k, n in calls.items() if "Launch" in k),
+                "copies": sum(n for k, n in calls.items()
+                              if "Launch" not in k), "calls": calls}
+        del mapper, cgi
+    return out
+
+
+def run_graphs(torch, n_genomes: int, graph_rows: dict) -> None:
+    """Mid through the CLI's fast path and exact path (``--exact --matrix
+    --visualize``) with every mapper eager, against phases 3 and 3c, which
+    ran the same with the map step's CUDA graphs: TSV, .matrix and .visual
+    byte-equal, the kernels' launches equal; each path's walls, graphs,
+    capture seconds, pool bytes, peak device bytes and host launches a
+    batch (``batch_host_calls``) in both modes."""
+    from fastani_tpu_torch.ops import cuda as kc
+
+    wd = WORK / "mid"
+    lst = str(wd / "genomes.txt")
+    paths = (wd / "genomes.txt").read_text().split()
+    n_pairs = n_genomes * n_genomes
+    per_batch = batch_host_calls(torch, paths)
+    emit({"phase": "graphs_host_calls", "seconds": per_batch.pop("seconds")})
+    for path, extra, ref, sufs in (
+            ("fast", ["--matrix"], "mid.txt", ("", ".matrix")),
+            ("exact", ["--exact", "--matrix", "--visualize"], "mid_exact.txt",
+             ("", ".matrix"))):
+        out = wd / f"eager_{path}.txt"
+        stats = {}
+        kc.reset_launches()
+        with eager_mappers():
+            wall = timed_cli(torch, ["--ql", lst, "--rl", lst, "-o", str(out)]
+                             + extra, stats)
+        eager = {"wall_s": wall,
+                 # the map loop: map + fold on the fast path, map on the
+                 # exact path
+                 "t_map_s": stats["t_map_fold" if path == "fast" else "t_map"],
+                 **graph_numbers(stats),
+                 "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                 "launches": dict(kc.LAUNCHES)}
+        graph = dict(graph_rows[path])
+        same = [(wd / (ref + suf)).read_bytes()
+                == pathlib.Path(f"{out}{suf}").read_bytes() for suf in sufs]
+        if path == "exact":
+            visual = pathlib.Path(f"{out}.visual")
+            same.append(file_sha256(visual) == graph.pop("visual_sha256"))
+            visual.unlink()
+        for mode, row in (("graphs", graph), ("eager", eager)):
+            calls = per_batch[(path, mode)]
+            row.update(host_launches_per_batch=calls["launches"],
+                       host_copies_per_batch=calls["copies"],
+                       host_calls_per_batch=calls["calls"])
+        emit({"phase": "graphs", "path": path, "pairs": n_pairs,
+              "graphs": graph, "eager": eager, "byte_equal": same,
+              "launches_equal": graph["launches"] == eager["launches"]})
+        if not all(same):
+            raise AssertionError(f"graphs {path}: files differ from the "
+                                 f"eager run's: {same}")
+        if graph["launches"] != eager["launches"]:
+            raise AssertionError(f"graphs {path}: launches {graph['launches']}"
+                                 f" against eager {eager['launches']}")
+        if not graph["graphs"] or eager["graphs"]:
+            raise AssertionError(f"graphs {path}: {graph['graphs']} graphs "
+                                 f"captured, eager {eager['graphs']}")
 
 
 # ---------------------------------------------------------------------------
@@ -1122,6 +1367,24 @@ def run_mesh(torch, np, n_genomes: int, golden: pathlib.Path):
     # the shards' caps and index builds) against its plain version
     mesh_sites = check_sites(torch, "mesh 2x2", seen, launches)
     del seen
+    # the same run with the map step's graphs, which the cells of a shard
+    # share: files byte-equal to the eager run's, launches equal
+    stats = {}
+    kc.reset_launches()
+    out = wd / "mesh_graphs.txt"
+    wall = timed_cli(torch, mid + ["-o", str(out)], stats)
+    same = [(wd / ("mesh.txt" + suf)).read_bytes()
+            == pathlib.Path(f"{out}{suf}").read_bytes()
+            for suf in ("", ".matrix")]
+    emit({"phase": "mesh_fast_graphs", "mesh": "2x2", "pairs": n_pairs,
+          **run_metrics(torch, wall, n_pairs), **graph_numbers(stats),
+          "t_map_fold_s": stats["t_map_fold"], "launches": dict(kc.LAUNCHES),
+          "byte_equal_eager": same,
+          "launches_equal": dict(kc.LAUNCHES) == launches})
+    if not all(same) or dict(kc.LAUNCHES) != launches or not stats["graphs"]:
+        raise AssertionError(f"mesh fast with graphs: files equal to the "
+                             f"eager run's {same}, launches {kc.LAUNCHES} "
+                             f"against {launches}, {stats['graphs']} graphs")
 
     # mid's first 16 query genomes, exact path: the TSV is phase 3c's
     # lines of those queries, byte for byte (the goldens below hold the
@@ -1314,16 +1577,21 @@ KERNEL_FUNCS = {
     "sort": ("sort_rows_net_kernel", "sort_rows_radix_kernel"),
     "sort_kv": ("sort_rows_kv_kernel",),
     "walk": ("walk_kernel",),
+    "fold": ("fold_rows_kernel",),
 }
 
 
-def trace_summary(path: str, top: int = 10) -> dict:
-    """A Chrome trace's kernels: their summed device time, the profiled
-    window (first event to last), the device's idle share of it, the top
-    kernels by device time and the kernels of KERNEL_FUNCS seen."""
+def trace_events(path: str) -> list:
+    """A Chrome trace's complete events (``ph`` X)."""
     with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X"]
+        return [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+
+
+def trace_summary(events: list, top: int = 10) -> dict:
+    """A trace's kernels (``trace_events``): their count and summed device
+    time, the profiled window (first event to last), the device's idle
+    share of it, the top kernels by device time and the launches of each
+    kernel of KERNEL_FUNCS."""
     lo = min(float(e["ts"]) for e in events)
     hi = max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
     by_name = {}
@@ -1337,8 +1605,9 @@ def trace_summary(path: str, top: int = 10) -> dict:
                    if any(f in name for f in funcs))
             for k, funcs in KERNEL_FUNCS.items()}
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return {"trace_bytes": os.path.getsize(path), "events": len(events),
-            "window_s": (hi - lo) / 1e6, "device_kernel_s": dev_us / 1e6,
+    return {"events": len(events), "window_s": (hi - lo) / 1e6,
+            "device_kernels": sum(n for _, n in by_name.values()),
+            "device_kernel_s": dev_us / 1e6,
             "device_idle_share": 1.0 - dev_us / (hi - lo),
             "kernel_launches_in_trace": seen,
             "top_kernels": [{"name": name[:90], "device_ms": t / 1e3,
@@ -1388,7 +1657,8 @@ def run_profile(torch, n_genomes: int, golden: pathlib.Path) -> dict:
                              str(wd / "prof")], stats)
     launches = dict(kc.LAUNCHES)
     t0 = time.time()
-    summary = trace_summary(stats["profile_trace"])
+    summary = {"trace_bytes": os.path.getsize(stats["profile_trace"]),
+               **trace_summary(trace_events(stats["profile_trace"]))}
     same = [(wd / "prof.txt").read_bytes()
             == tsv_of_queries(wd / "mid.txt", queries)]
     emit({"phase": "profile", "queries": PROFILE_QUERIES, "pairs": n_pairs,
@@ -1397,13 +1667,18 @@ def run_profile(torch, n_genomes: int, golden: pathlib.Path) -> dict:
           "t_map_fold_s": stats["t_map_fold"],
           "t_trace_export_s": stats["t_trace_export"],
           "t_trace_read_s": time.time() - t0, "launches": launches,
+          "launches_traced": stats["profile_launches"],
           "byte_equal_fast": same, **summary})
     shutil.rmtree(wd / "prof")
-    unnamed = [k for k, n in summary["kernel_launches_in_trace"].items()
-               if not n]
-    if unnamed or not all(same):
+    # each wrapper launch of the traced window is one kernel in the trace,
+    # replayed graphs' included: the counts added a replay are what ran
+    in_trace = summary["kernel_launches_in_trace"]
+    unnamed = [k for k, n in in_trace.items() if not n]
+    if unnamed or in_trace != stats["profile_launches"] or not all(same):
         raise AssertionError(f"profile: kernels not in the trace: {unnamed}; "
-                             f"files equal to phase 3's: {same}")
+                             f"in the trace {in_trace} against launches "
+                             f"{stats['profile_launches']}; files equal to "
+                             f"phase 3's: {same}")
     return launches
 
 
@@ -1495,7 +1770,8 @@ def run_sharded_step(torch, golden: pathlib.Path) -> dict:
         raise AssertionError(f"sharded step: {got} against {want}")
     if dev > 1e-3:
         raise AssertionError(f"sharded step: ANI off by {dev}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k, v in launches.items()
+               if v <= 0 and k not in FAST_ONLY]
     if missing:
         raise AssertionError(f"sharded step: kernels not launched: {missing}")
     return launches, sites
@@ -1522,8 +1798,8 @@ def build_workload(np, workdir: pathlib.Path, n_genomes: int, size: int):
 
 
 def run_main_path(torch, np, n_genomes: int, size: int):
-    """Returns (launches, genome paths, batches); the genomes stay in
-    .smokework/mid for phase 4."""
+    """Returns (launches, genome paths, batches, the phase's line); the
+    genomes stay in .smokework/mid for phase 4."""
     from fastani_tpu_torch import cli
     from fastani_tpu_torch.config import Parameters, scale_caps
     from fastani_tpu_torch.models import jitmap
@@ -1562,6 +1838,7 @@ def run_main_path(torch, np, n_genomes: int, size: int):
            "t_mapper_init_s": stats["t_mapper_init"],
            "t_map_fold_s": stats["t_map_fold"], "t_write_s": stats["t_write"],
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           **graph_numbers(stats),
            "batches": stats["batches"], "fallback_frags": stats["fallback_frags"],
            "counters_max": {k: stats[k] for k in jitmap.COUNT_NAMES},
            "launches": launches, "tsv_rows": len(lines),
@@ -1582,7 +1859,7 @@ def run_main_path(torch, np, n_genomes: int, size: int):
                              f"{matrix_rows} matrix lines")
     if not all(75.0 < a <= 100.0 for a in ani):
         raise AssertionError(f"ANI out of range: {min(ani)}..{max(ani)}")
-    return launches, paths, stats["batches"]
+    return launches, paths, stats["batches"], row
 
 
 def main() -> int:
@@ -1606,12 +1883,19 @@ def main() -> int:
           "build_s": time.time() - t0, "built": built})
 
     golden_dir = run_golden(np)
-    launches, paths, batches = run_main_path(torch, np, N_GENOMES, GENOME_BP)
+    launches, paths, batches, fast_row = run_main_path(torch, np, N_GENOMES,
+                                                       GENOME_BP)
     run_native_io(paths)
     run_redo(torch, golden_dir)
-    launches_exact, kept = run_exact_mid(torch, N_GENOMES)
+    launches_exact, kept, exact_row = run_exact_mid(torch, N_GENOMES)
     run_cgi_matrices(torch, kept)
     del kept
+    run_graphs(torch, N_GENOMES, {
+        "fast": {k: fast_row[k] for k in ("wall_s", "graphs", "t_capture_s",
+                                          "graph_pool_bytes", "peak_mem_bytes",
+                                          "batches")}
+        | {"t_map_s": fast_row["t_map_fold_s"], "launches": launches},
+        "exact": exact_row | {"launches": launches_exact}})
     run_sanity_and_oracle(torch, np, golden_dir)
     launches_mesh, mesh_sites = run_mesh(torch, np, N_GENOMES, golden_dir)
     launches_step, step_sites = run_sharded_step(torch, golden_dir)
@@ -1629,7 +1913,8 @@ def main() -> int:
                       "launches_step": launches_step[name],
                       "max_abs_err": r["max_abs_err"],
                       "max_abs_err_mesh": mesh_sites[name]["max_abs_err"],
-                      "max_abs_err_step": step_sites[name]["max_abs_err"],
+                      "max_abs_err_step": step_sites.get(
+                          name, {}).get("max_abs_err"),
                       "ms": r["kernel_ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],

@@ -13,7 +13,8 @@ Identities come
 from a float32 LUT over (sketch size, shared count), so each row's
 identity equals the host path's.  Each genome's identities are summed as
 the reference sums them, a float32 left fold in bin order
-(``fold_sequential``), so the sums are the same bits on the card and on
+(``fold_sequential``; ``fold_rows``, one launch of ``csrc/fold.cu`` a
+finalize on a card), so the sums are the same bits on the card and on
 the CPU, in every run, on a shard as in the single run, and equal to the
 exact path's host fold; the JAX package's segment sums may differ from
 them in the last bits (counts are exact).
@@ -29,7 +30,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from fastani_tpu_torch.ops import stats
+from fastani_tpu_torch.ops import cuda, stats
 
 
 def identity_lut_full(k: int, s_max: int) -> np.ndarray:
@@ -97,20 +98,16 @@ def update_tab(tab, packed, n_valid: int, genome_of_seq, bin_start,
 
 
 def genome_bins(gid_of_bin, n_rg: int) -> np.ndarray:
-    """(max bins of a genome, n_rg) int64: row j holds each reference
-    genome's j-th bin, ``len(gid_of_bin)`` where the genome has fewer (a
-    pad column the caller appends).  A genome's bins are one contiguous
-    range: ``make_bin_tables`` repeats ``genome_of_seq`` in seqId order,
-    and seqIds are numbered file by file, so ``gid_of_bin`` never
-    decreases."""
+    """(2, n_rg) int32: each reference genome's first bin and its bin
+    count.  A genome's bins are one contiguous range: ``make_bin_tables``
+    repeats ``genome_of_seq`` in seqId order, and seqIds are numbered file
+    by file, so ``gid_of_bin`` never decreases."""
     gob = np.asarray(gid_of_bin, np.int64)
     if np.any(np.diff(gob) < 0):
         raise ValueError("gid_of_bin decreases: a genome's bins are not one "
                          "contiguous range")
     n = np.bincount(gob, minlength=n_rg)[:n_rg]
-    start = np.cumsum(n) - n
-    j = np.arange(max(int(n.max(initial=0)), 1))[:, None]
-    return np.where(j < n, start + j, len(gob))
+    return np.stack([np.cumsum(n) - n, n]).astype(np.int32)
 
 
 def fold_sequential(x: torch.Tensor) -> torch.Tensor:
@@ -125,44 +122,83 @@ def fold_sequential(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-# bin columns gathered at a time by finalize_rows: bounds its scratch to
+# bin columns gathered at a time by fold_rows_plain: bounds its scratch to
 # FOLD_BLOCK x Gr x FIN floats, whatever the longest genome's bin count
 FOLD_BLOCK = 64
 
 
+def fold_rows(rows: torch.Tensor, ranges: torch.Tensor):
+    """Per (row, reference genome): the count of occupied bins and the sum
+    of their identities, a float32 left fold over the genome's bins in bin
+    order as ``fold_sequential`` sums.  ``rows`` (FIN, B_tot) int32 holds
+    float32 identity bits, -1 where a bin is empty; ``ranges`` is
+    ``genome_bins``' (2, Gr) int32 first bins and bin counts.  Returns
+    (counts (FIN, Gr) int32, sums (FIN, Gr) float32).  Launches
+    ``csrc/fold.cu`` (one thread per row and genome) on CUDA tensors, runs
+    ``fold_rows_plain`` on CPU tensors."""
+    if rows.device.type == "cpu":
+        return fold_rows_plain(rows, ranges)
+    if rows.dtype != torch.int32 or ranges.dtype != torch.int32:
+        raise ValueError(f"fold_rows: int32 rows and ranges expected, got "
+                         f"{rows.dtype} and {ranges.dtype}")
+    FIN, B_tot = rows.shape
+    Gr = ranges.shape[1]
+    rows, ranges = rows.contiguous(), ranges.contiguous()
+    cuda.require_cuda("fold_rows", rows, ranges)
+    counts = torch.empty((FIN, Gr), dtype=torch.int32, device=rows.device)
+    sums = torch.empty((FIN, Gr), dtype=torch.float32, device=rows.device)
+    if FIN and Gr:
+        err = cuda.lib("fold").fa_fold_rows(
+            rows.data_ptr(), ranges[0].data_ptr(), ranges[1].data_ptr(), FIN,
+            B_tot, Gr, counts.data_ptr(), sums.data_ptr(), cuda.stream())
+        cuda.check(err, "fold")
+        cuda.LAUNCHES["fold"] += 1
+    return counts, sums
+
+
+def fold_rows_plain(rows: torch.Tensor, ranges: torch.Tensor):
+    """Plain PyTorch version of the fold kernel: counts as int32
+    prefix-sum differences over each genome's bin range; sums by one
+    elementwise add a bin column of the longest genome (FOLD_BLOCK columns
+    gathered at a time), zeros past a shorter genome's last bin."""
+    FIN, B_tot = rows.shape
+    dev = rows.device
+    start, n = ranges[0].long(), ranges[1].long()
+    occ = rows >= 0
+    cs = torch.zeros((FIN, B_tot + 1), dtype=torch.int32, device=dev)
+    cs[:, 1:] = occ.cumsum(1, dtype=torch.int32)
+    # row j: each genome's j-th bin, the zero column B_tot past its last
+    j = torch.arange(max(int(n.max()) if n.numel() else 0, 1),
+                     device=dev)[:, None]
+    bins = torch.where(j < n, start + j, B_tot)
+    vals = torch.zeros((B_tot + 1, FIN), dtype=torch.float32, device=dev)
+    vals[:B_tot] = torch.where(occ, rows.view(torch.float32), 0.0).t()
+    acc = torch.zeros((ranges.shape[1], FIN), dtype=torch.float32,
+                      device=dev)
+    for j0 in range(0, bins.shape[0], FOLD_BLOCK):
+        for col in vals[bins[j0:j0 + FOLD_BLOCK]].unbind(0):
+            acc.add_(col)                               # (Gr, FIN)
+    return cs[:, start + n] - cs[:, start], acc.t()
+
+
 def finalize_rows(tab, acc_counts, acc_sums, fin_qnos: torch.Tensor,
-                  bins_of_genome, n_slots: int, rows=None):
+                  ranges, n_slots: int, rows=None):
     """Fold the table rows of the listed query genomes into the (Gq, Gr)
     accumulators and clear their slots, in place.  ``fin_qnos`` (FIN,)
     lists query genomes whose last fragment has been folded;
-    ``bins_of_genome`` is ``genome_bins``' index; ``rows`` (FIN, B_tot),
-    when given, is folded in place of their slots' rows.  Counts are exact
-    int32 prefix-sum differences over each genome's bin range; each
-    genome's identities are summed as ``fold_sequential`` sums them, a
-    left fold over its own bins in bin order (FOLD_BLOCK bin columns
-    gathered at a time), so its sum does not depend on the other genomes.
-    One elementwise add per bin of the longest genome."""
+    ``ranges`` is ``genome_bins``' (2, Gr) table; ``rows`` (FIN, B_tot),
+    when given, is folded in place of their slots' rows.  Each genome's
+    count and sum come from ``fold_rows`` (one kernel launch on a card),
+    so a sum does not depend on the other genomes."""
     FIN = fin_qnos.shape[0]
     if not FIN:
         return tab, acc_counts, acc_sums
     slots = fin_qnos % n_slots
     if rows is None:
         rows = tab[slots]                               # (FIN, B_tot)
-    B_tot, dev = rows.shape[1], rows.device
-    occ = rows >= 0
-    cs = torch.zeros((FIN, B_tot + 1), dtype=torch.int32, device=dev)
-    cs[:, 1:] = occ.cumsum(1, dtype=torch.int32)
-    start = bins_of_genome[0]
-    end = start + (bins_of_genome < B_tot).sum(0)
-    acc_counts.index_add_(0, fin_qnos, cs[:, end] - cs[:, start])
-    vals = torch.zeros((B_tot + 1, FIN), dtype=torch.float32, device=dev)
-    vals[:B_tot] = torch.where(occ, rows.view(torch.float32), 0.0).t()
-    acc = torch.zeros((bins_of_genome.shape[1], FIN), dtype=torch.float32,
-                      device=dev)
-    for j in range(0, bins_of_genome.shape[0], FOLD_BLOCK):
-        for col in vals[bins_of_genome[j:j + FOLD_BLOCK]].unbind(0):
-            acc.add_(col)                               # (Gr, FIN)
-    acc_sums.index_add_(0, fin_qnos, acc.t())
+    counts, sums = fold_rows(rows, ranges)
+    acc_counts.index_add_(0, fin_qnos, counts)
+    acc_sums.index_add_(0, fin_qnos, sums)
     tab[slots] = -1
     return tab, acc_counts, acc_sums
 
@@ -267,7 +303,8 @@ class StreamingCGI:
             [c.length for c in index.metadata], gos, params.frag_len)
         self.B_tot = int(len(gid_of_bin))
         self._bin_start = torch.as_tensor(bin_start, device=dev)
-        self._genome_bins = torch.as_tensor(
+        # each genome's bin range, made once for every finalize call
+        self._ranges = torch.as_tensor(
             genome_bins(gid_of_bin, n_ref_genomes), device=dev)
         self._gos = torch.as_tensor(gos, device=dev)
         s_max = max(params.sketch_cap, 1)
@@ -312,7 +349,7 @@ class StreamingCGI:
             if reduce_max is not None:
                 reduce_max(rows)
         finalize_rows(self._tab, self._counts, self._sums, fin,
-                      self._genome_bins, self.n_slots, rows=rows)
+                      self._ranges, self.n_slots, rows=rows)
 
     def result(self):
         return self._counts.cpu().numpy(), self._sums.cpu().numpy()

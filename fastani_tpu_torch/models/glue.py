@@ -91,7 +91,9 @@ def map_fallback_batch(frags: torch.Tensor, mapper: "jitmap.Mapper", params,
     cutoff (computeMap.hpp:375-403); mapper is the one whose caps held the
     batch."""
     while True:
-        out = mapper.map_batch(frags)
+        # eager: a fallback batch's height and caps are one-offs, which
+        # graphs would capture for no replay
+        out = jitmap.map_step_packed(mapper.cfg, frags, mapper.tables)
         c = dict(zip(jitmap.COUNT_NAMES, out["counts"].tolist()))
         if not jitmap.overflowed(c):
             break

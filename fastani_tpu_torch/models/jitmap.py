@@ -3,10 +3,14 @@
 One fragment batch against the device-resident index: sketch, L1, unit
 compaction to ``unit_cap``, L2 over chunks of ``unit_chunk`` units, the
 identity gate, and the packed valid-first block the device CGI folds.
-PyTorch runs eagerly, so there is no jit: ``Mapper`` holds the index
-tables and runs ``map_step_packed`` per batch.  The L2 chunk loop reads
-one scalar per batch (the live unit count) to stop after the last chunk
-with a valid unit.
+The step runs as three stages over one dict of buffers: ``stage_pre``
+(everything before L2), ``stage_chunk`` (one L2 chunk at a device-held
+offset) and ``stage_post`` (gate, fallback mask, pack, counts).
+``map_step_packed`` runs them eagerly; on a card ``Mapper`` captures them
+as CUDA graphs (``StepGraphs``), the counterpart of the JAX package's
+``jax.jit`` of the step.  Between the stages the host reads one scalar a
+batch, the live unit count, to replay the chunk up to the last chunk with
+a valid unit (the JAX package's device-side ``while_loop`` bound).
 """
 
 from __future__ import annotations
@@ -14,13 +18,14 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
-from typing import Optional
+import time
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from fastani_tpu_torch.models import l2walk, mapping
-from fastani_tpu_torch.ops import compact, stats
+from fastani_tpu_torch.ops import compact, cuda, stats
 from fastani_tpu_torch.ops.xputils import PINF, UMAX
 
 # the 11 entries of map_step_packed's counts vector, in order
@@ -110,7 +115,9 @@ class IndexTables:
 def locate_units(cfg: MapperConfig, frags: torch.Tensor,
                  t: IndexTables) -> dict:
     """Sketch, L1, valid-unit compaction to ``unit_cap`` and each unit's
-    entry window: everything of one batch before its L2 chunks."""
+    entry window: everything of one batch before its L2 chunks.  The live
+    unit count ``n_live`` and ``unit_overflow`` stay on the device (0-d
+    tensors): nothing here reads the device from the host."""
     F = frags.shape[0]
     dev = frags.device
     k, w, l = cfg.kmer_size, cfg.window_size, cfg.frag_len
@@ -121,14 +128,13 @@ def locate_units(cfg: MapperConfig, frags: torch.Tensor,
 
     # flatten the candidate grid and compact valid units to the front
     # (K2, stable: fragment-major order kept)
-    u_frag = torch.arange(F, dtype=torch.int32, device=dev).repeat_interleave(
-        cfg.cand_cap)
-    u_valid_grid = l1.valid.reshape(1, -1)
-    n_valid_units = int(l1.valid.sum())
+    u_frag = torch.arange(F, dtype=torch.int32, device=dev)[:, None].expand(
+        F, cfg.cand_cap).reshape(1, -1)
+    n_valid_units = l1.valid.sum()
     u_sid, u_start, u_end, u_frag = (a[0] for a in compact.compact_rows(
-        u_valid_grid, [(l1.sid.reshape(1, -1), 0), (l1.start.reshape(1, -1), 0),
-                       (l1.end.reshape(1, -1), 0), (u_frag.reshape(1, -1), 0)],
-        width=cfg.unit_cap))
+        l1.valid.reshape(1, -1),
+        [(l1.sid.reshape(1, -1), 0), (l1.start.reshape(1, -1), 0),
+         (l1.end.reshape(1, -1), 0), (u_frag, 0)], width=cfg.unit_cap))
     U = cfg.unit_cap
     u_valid = torch.arange(U, device=dev) < n_valid_units
     # exact per-fragment attribution of dropped units: fragment f's units
@@ -146,97 +152,204 @@ def locate_units(cfg: MapperConfig, frags: torch.Tensor,
                 u_sid=u_sid, u_valid=u_valid, b0=b0, eL=eL, nvf=nvf,
                 # L2 runs only over chunks holding a valid unit (valid
                 # units come first)
-                n_live=min(n_valid_units, U),
+                n_live=n_valid_units.clamp(max=U),
                 unit_overflow=n_valid_units > U,
                 unit_drop_frag=(torch.cumsum(nvf, 0) > U) & (nvf > 0))
 
 
-def l2_chunk_args(cfg: MapperConfig, t: IndexTables, u: dict,
-                  sl: slice) -> tuple:
+def l2_chunk_args(cfg: MapperConfig, t: IndexTables, u: dict, sl) -> tuple:
     """The ``l2walk.build_events`` / ``l2_walk_units`` arguments of the
-    units ``sl`` of ``locate_units``'s result ``u``."""
+    units ``sl`` (a slice, or a tensor of unit numbers) of
+    ``locate_units``' result ``u``."""
     return (u["qh"], u["s"], u["u_frag"][sl].long(), u["u_sid"][sl],
             u["u_valid"][sl], u["b0"][sl], u["eL"][sl], t.mi_hash, t.mi_sid,
             t.mi_wpos, t.mi_prev, t.mi_nxt, cfg.frag_len, cfg.kmer_size,
             cfg.window_size, cfg.l2_entry_cap)
 
 
-def map_step(cfg: MapperConfig, frags: torch.Tensor, t: IndexTables) -> dict:
-    """One fragment batch against one index.  Returns a dict of (unit_cap,)
-    unit arrays (frag, sid, shared, sketch, mean_pos, valid = gated) plus
-    per-fragment overflow masks and the observed maxima."""
-    dev = frags.device
-    u = locate_units(cfg, frags, t)
-    U = cfg.unit_cap
-    shared = torch.zeros(U, dtype=torch.int32, device=dev)
-    mean_pos = torch.zeros(U, dtype=torch.int32, device=dev)
-    l2_valid = torch.zeros(U, dtype=torch.bool, device=dev)
-    l2_over = torch.zeros(U, dtype=torch.bool, device=dev)
-    for c0 in range(0, u["n_live"], cfg.unit_chunk):
-        sl = slice(c0, min(c0 + cfg.unit_chunk, U))
-        shared[sl], mean_pos[sl], l2_valid[sl], l2_over[sl] = (
-            l2walk.l2_walk_units(*l2_chunk_args(cfg, t, u, sl)))
+# The map step in three stages over one dict of buffers (the counterpart
+# of the JAX package's jitted ``map_step_packed`` and its device-side L2
+# ``while_loop``): the inputs (INPUTS, None where not given), then what
+# each stage writes.  Eagerly the dict is made anew a batch; under CUDA
+# graphs (``StepGraphs``) its tensors are the graphs' static buffers.
+INPUTS = ("frags", "qno_row", "qsid_row", "row_valid")
+OUTPUTS = ("packed", "counts", "fallback_mask")
+_L2_OUT = ("shared", "mean_pos", "l2_valid", "l2_over")
 
+
+def n_chunks(cfg: MapperConfig, n_live: torch.Tensor) -> int:
+    """The L2 chunks holding the live units, ceil(n_live / unit_chunk): the
+    one read of the device in the middle of a batch."""
+    return -(-int(n_live) // cfg.unit_chunk)
+
+
+def stage_pre(cfg: MapperConfig, t: IndexTables, bufs: dict) -> None:
+    """Stage 1: ``locate_units`` on ``bufs["frags"]``, its unit arrays
+    padded with invalid units to whole chunks (the JAX ``pad_to``), and the
+    L2 outputs zeroed and the chunk offset ``off`` set to 0 for
+    ``stage_chunk``."""
+    u = locate_units(cfg, bufs["frags"], t)
+    pad = -cfg.unit_cap % cfg.unit_chunk
+    for name in ("u_frag", "u_sid", "u_valid", "b0", "eL"):
+        if pad:
+            u[name] = torch.cat([u[name], u[name].new_zeros(pad)])
+    dev = bufs["frags"].device
+    Up = cfg.unit_cap + pad
+    bufs.update(u, off=torch.zeros((), dtype=torch.int64, device=dev),
+                **{name: torch.zeros(Up, dtype=dt, device=dev)
+                   for name, dt in zip(_L2_OUT, (torch.int32, torch.int32,
+                                                 torch.bool, torch.bool))})
+
+
+def stage_chunk(cfg: MapperConfig, t: IndexTables, bufs: dict) -> None:
+    """Stage 2: one L2 chunk, the ``unit_chunk`` units at the device offset
+    ``bufs["off"]``: ``build_events``, K4 and K5, the results scattered
+    back at the offset, which then advances by ``unit_chunk``.  A unit's
+    L2 does not depend on the other units of its chunk, so ``n_chunks``
+    calls give what slicing the units chunk by chunk gives, bit for bit."""
+    idx = bufs["off"] + torch.arange(cfg.unit_chunk, device=bufs["off"].device)
+    res = l2walk.l2_walk_units(*l2_chunk_args(cfg, t, bufs, idx))
+    for name, r in zip(_L2_OUT, res):
+        bufs[name].index_copy_(0, idx, r)
+    bufs["off"] += cfg.unit_chunk
+
+
+def stage_post(cfg: MapperConfig, t: IndexTables, bufs: dict) -> None:
+    """Stage 3: the identity gate, the per-fragment fallback mask, the
+    (7, unit_cap) int32 block sorted valid-first, rows (frag, qno, qsid,
+    sid, shared, sketch, mean_pos), and the (11,) ``counts`` vector named
+    by COUNT_NAMES, into ``bufs`` (OUTPUTS)."""
+    U = cfg.unit_cap
+    F = bufs["frags"].shape[0]
+    u_frag, sid, u_valid, b0, eL, shared, mean_pos, l2_valid, l2_over = (
+        bufs[name][:U] for name in ("u_frag", "u_sid", "u_valid", "b0", "eL")
+        + _L2_OUT)
+    s, l1, sk_over = bufs["s"], bufs["l1"], bufs["sk_over"]
+    qno_row, qsid_row, row_valid = (bufs.get(name) for name in INPUTS[1:])
+    frag = u_frag.long()
     # identity gate: shared >= gate[s]
-    u_frag, s, l1 = u["u_frag"], u["s"], u["l1"]
-    s_u = s[u_frag.long()]
+    s_u = s[frag]
     gated = l2_valid & (shared >= t.gate[s_u.clamp(0, t.gate.shape[0] - 1)])
-    max_span = torch.where(u["u_valid"], u["eL"] - u["b0"], 0).max()
-    return dict(
-        frag=u_frag, sid=u["u_sid"], shared=shared, sketch=s_u.to(torch.int32),
-        mean_pos=mean_pos, valid=gated & ~l2_over,
-        frag_sketch_overflow=u["sk_over"], l1_overflow=l1.overflow,
-        l2_overflow=l2_over, unit_frag_overflow=u["unit_overflow"],
-        unit_drop_frag=u["unit_drop_frag"],
-        max_hits=l1.n_hits.max(), max_groups=l1.n_groups.max(),
-        max_s=s.max(), max_span=max_span, n_units=u["nvf"].sum(),
-        sum_hits=l1.n_hits.sum())
+    max_span = torch.where(u_valid, eL - b0, 0).max()
+    fc = frag.clamp(0, F - 1)
+    fb_l2 = torch.zeros(F, dtype=torch.int32, device=frag.device)
+    fb_l2.index_add_(0, fc, l2_over.to(torch.int32))
+    fallback_mask = (sk_over | l1.overflow | (fb_l2 > 0)
+                     | bufs["unit_drop_frag"])
+    if row_valid is not None:
+        fallback_mask = fallback_mask & row_valid
+    keep = gated & ~l2_over & ~fallback_mask[fc]
+    if row_valid is not None:
+        keep = keep & row_valid[fc]
+    corder = torch.argsort((~keep).to(torch.int32), stable=True)
+    qno = torch.zeros_like(u_frag) if qno_row is None else qno_row[frag]
+    qsid = u_frag if qsid_row is None else qsid_row[frag]
+    packed = torch.stack([
+        u_frag, qno.to(torch.int32), qsid.to(torch.int32), sid, shared,
+        s_u.to(torch.int32), mean_pos])[:, corder]
+    counts = torch.stack([
+        keep.sum(), sk_over.any(), l1.overflow.any(), l2_over.any(),
+        bufs["unit_overflow"], l1.n_hits.max(), l1.n_groups.max(), s.max(),
+        max_span, bufs["nvf"].sum(), l1.n_hits.sum()]).to(torch.int64)
+    bufs.update(packed=packed, counts=counts, fallback_mask=fallback_mask)
 
 
 def map_step_packed(cfg: MapperConfig, frags: torch.Tensor, t: IndexTables,
                     qno_row: Optional[torch.Tensor] = None,
                     qsid_row: Optional[torch.Tensor] = None,
                     row_valid: Optional[torch.Tensor] = None) -> dict:
-    """map_step plus the per-fragment fallback mask and one (7, unit_cap)
-    int32 block sorted valid-first, rows (frag, qno, qsid, sid, shared,
-    sketch, mean_pos); ``counts`` is an (11,) vector named by COUNT_NAMES."""
-    out = map_step(cfg, frags, t)
-    F = frags.shape[0]
-    frag = out["frag"].long()
-    fc = frag.clamp(0, F - 1)
-    fb_l2 = torch.zeros(F, dtype=torch.int32, device=frags.device)
-    fb_l2.index_add_(0, fc, out["l2_overflow"].to(torch.int32))
-    fallback_mask = (out["frag_sketch_overflow"] | out["l1_overflow"]
-                     | (fb_l2 > 0) | out["unit_drop_frag"])
-    if row_valid is not None:
-        fallback_mask = fallback_mask & row_valid
-    keep = out["valid"] & ~fallback_mask[fc]
-    if row_valid is not None:
-        keep = keep & row_valid[fc]
-    corder = torch.argsort((~keep).to(torch.int32), stable=True)
-    qno = torch.zeros_like(out["frag"]) if qno_row is None else qno_row[frag]
-    qsid = out["frag"] if qsid_row is None else qsid_row[frag]
-    packed = torch.stack([
-        out["frag"], qno.to(torch.int32), qsid.to(torch.int32), out["sid"],
-        out["shared"], out["sketch"], out["mean_pos"]])[:, corder]
-    counts = torch.stack([
-        keep.sum(), out["frag_sketch_overflow"].any(),
-        out["l1_overflow"].any(), out["l2_overflow"].any(),
-        torch.as_tensor(out["unit_frag_overflow"], device=frags.device),
-        out["max_hits"], out["max_groups"], out["max_s"], out["max_span"],
-        out["n_units"], out["sum_hits"]]).to(torch.int64)
-    return dict(packed=packed, counts=counts, fallback_mask=fallback_mask)
+    """One fragment batch against one index, eagerly: ``stage_pre``,
+    ``stage_chunk`` ``n_chunks`` times, ``stage_post``.  Returns OUTPUTS:
+    ``packed`` (7, unit_cap) int32, ``counts`` (11,) int64 and
+    ``fallback_mask`` (F,) bool."""
+    bufs = dict(zip(INPUTS, (frags, qno_row, qsid_row, row_valid)))
+    stage_pre(cfg, t, bufs)
+    for _ in range(n_chunks(cfg, bufs["n_live"])):
+        stage_chunk(cfg, t, bufs)
+    stage_post(cfg, t, bufs)
+    return {name: bufs[name] for name in OUTPUTS}
+
+
+class StepGraphs:
+    """The three stages of one key (the ``MapperConfig``, the batch height
+    and which row arrays are given) captured as CUDA graphs over static
+    buffers, in one memory pool: they always replay in the order pre,
+    chunk ..., post.  ``run`` copies a batch into the static inputs,
+    replays pre, reads ``n_live``, replays chunk ``n_chunks`` times, then
+    post.  Its outputs are static buffers, which the key's next batch
+    overwrites: a caller consumes them (on the stream, or by a read)
+    before it maps again.  A capture that reads the device from the host
+    raises.  ``launches`` holds each graph's kernel launches (the wrappers'
+    counts during its capture); each replay adds them to
+    ``cuda.LAUNCHES``."""
+
+    STAGES = (("pre", stage_pre), ("chunk", stage_chunk),
+              ("post", stage_post))
+
+    def __init__(self, cfg: MapperConfig, t: IndexTables, inputs: dict):
+        """Capture on the current stream, which must not be the default
+        stream (``Mapper.map_batch`` captures on its side stream)."""
+        self.cfg = cfg
+        self.bufs = {name: torch.empty_like(x) for name, x in inputs.items()
+                     if x is not None}
+        self.graphs, self.launches = {}, {}
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        pool = None
+        for name, stage in self.STAGES:
+            g = torch.cuda.CUDAGraph()
+            with cuda.captured_launches() as launches:
+                g.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    stage(cfg, t, self.bufs)
+                finally:
+                    g.capture_end()
+            if pool is None:
+                pool = g.pool()
+            self.graphs[name], self.launches[name] = g, launches
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved() - reserved
+
+    def _replay(self, name: str) -> None:
+        self.graphs[name].replay()
+        cuda.add_launches(self.launches[name])
+
+    def replay_chunks(self, n: int) -> None:
+        for _ in range(n):
+            self._replay("chunk")
+
+    def run(self, inputs: dict) -> dict:
+        for name, x in inputs.items():
+            if x is not None:
+                self.bufs[name].copy_(x)
+        self._replay("pre")
+        self.replay_chunks(n_chunks(self.cfg, self.bufs["n_live"]))
+        self._replay("post")
+        return {name: self.bufs[name] for name in OUTPUTS}
 
 
 class Mapper:
     """The mapping step bound to one index resident on the device (the
-    work of ``JitMapper.__init__``, without jit): LUTs, index arrays padded
-    with a sentinel margin, packed lookup keys and prev/next links."""
+    work of ``JitMapper.__init__``): LUTs, index arrays padded with a
+    sentinel margin, packed lookup keys and prev/next links.
+
+    ``graphs`` (default: on for an index on a card, always off on the
+    CPU) runs the step as CUDA graphs, the counterpart of the JAX
+    package's jit: a key's first batch runs eagerly (the capture's
+    warm-up; its launches count as eager ones), its second batch captures
+    the three stages (``StepGraphs``) and replays them, and later batches
+    of the key replay them.  A key seen once, such as a run's tail batch,
+    is never captured.  ``graphs=False`` runs every batch eagerly."""
 
     def __init__(self, params, index, unit_factor: int = 4,
-                 unit_chunk: int = 128):
+                 unit_chunk: int = 128, graphs: Optional[bool] = None):
         self.params = params
         self.index = index
+        on_card = index.device.type == "cuda"
+        self.graphs = on_card if graphs is None else bool(graphs) and on_card
+        # key -> its graphs, None while the key has had one batch
+        self._steps: Dict[tuple, Optional[StepGraphs]] = {}
+        self._side = None       # the stream of the captures
         self.cfg = MapperConfig.from_params(params, index.freq_threshold,
                                             unit_factor, unit_chunk,
                                             index=index)
@@ -284,9 +397,11 @@ class Mapper:
     def with_caps(self, **caps) -> "Mapper":
         """This mapper over the same index tables with other capacity caps
         (``MapperConfig`` fields: sketch_cap, hits_cap, cand_cap,
-        l2_entry_cap, unit_cap); the LUTs follow sketch_cap."""
+        l2_entry_cap, unit_cap); the LUTs follow sketch_cap.  The copy
+        starts with no graphs of its own."""
         other = copy.copy(self)
         other.cfg = dataclasses.replace(self.cfg, **caps)
+        other._steps = {}
         if other.cfg.sketch_cap != self.cfg.sketch_cap:
             other.tables = dataclasses.replace(
                 self.tables, **self._luts(other.cfg.sketch_cap))
@@ -294,8 +409,45 @@ class Mapper:
 
     def map_batch(self, frags: torch.Tensor, qno_row=None, qsid_row=None,
                   row_valid=None) -> dict:
-        return map_step_packed(self.cfg, frags, self.tables, qno_row,
-                               qsid_row, row_valid)
+        """``map_step_packed`` of one batch; through the key's graphs when
+        the mapper runs graphs.  A replay's outputs are the graphs' static
+        buffers (see ``StepGraphs``)."""
+        inputs = dict(zip(INPUTS, (frags, qno_row, qsid_row, row_valid)))
+        key = (self.cfg, frags.shape[0],
+               *(x is not None for x in inputs.values()))
+        step = self._steps.get(key)
+        if step is None:
+            if not self.graphs or key not in self._steps:
+                # eager: without graphs, or the key's first batch, the
+                # capture's warm-up (a height seen once is never captured)
+                if self.graphs:
+                    self._steps[key] = None
+                return map_step_packed(self.cfg, frags, self.tables,
+                                       qno_row, qsid_row, row_valid)
+            step = self._steps[key] = self._capture(inputs)
+        return step.run(inputs)
+
+    def _capture(self, inputs: dict) -> StepGraphs:
+        """The key's second batch: capture its stages on the side stream,
+        as ``torch.cuda.graph`` captures, without its synchronise, garbage
+        collection and cache flush."""
+        dev = inputs["frags"].device
+        if self._side is None:
+            self._side = torch.cuda.Stream(dev)
+        main = torch.cuda.current_stream(dev)
+        self._side.wait_stream(main)
+        with torch.cuda.stream(self._side):
+            step = StepGraphs(self.cfg, self.tables, inputs)
+        main.wait_stream(self._side)
+        return step
+
+    def graph_stats(self) -> dict:
+        """The graphs captured so far: their count, the seconds their
+        captures took and the device bytes their pool reserved."""
+        steps = [st for st in self._steps.values() if st is not None]
+        return {"graphs": len(StepGraphs.STAGES) * len(steps),
+                "t_capture": sum(st.capture_s for st in steps),
+                "graph_pool_bytes": sum(st.pool_bytes for st in steps)}
 
     def probe_hits(self, frags: torch.Tensor) -> torch.Tensor:
         """The L1 hit totals of one batch without the map step (the JAX

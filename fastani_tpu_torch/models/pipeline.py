@@ -3,9 +3,11 @@
 they run).  Reference semantics: src/cgi/core_genome_identity.cpp:27-167.
 
 ``run_fast``: device index build -> Mapper -> one plain loop over fragment
-batches, each mapped and folded into the device CGI table, finished query
-genomes closed as the loop passes them -> one readout of the (Gq, Gr)
-matrices -> TSV and optional phylip matrix.
+batches, each mapped (on a card through the mapper's CUDA graphs) and
+folded into the device CGI table, finished query genomes closed as the
+loop passes them -> one readout of the (Gq, Gr) matrices -> TSV and
+optional phylip matrix.  ``stats`` takes the graphs' count, capture
+seconds and pool bytes (``Mapper.graph_stats``) on both paths.
 
 ``run`` (the exact path: ``--exact``, ``--visualize``, ``-s``): the same
 index build and map step, but each batch's valid rows are read back and
@@ -50,7 +52,7 @@ from fastani_tpu_torch.config import Parameters, scale_caps
 from fastani_tpu_torch.index.sketch import ReferenceIndex
 from fastani_tpu_torch.io import fasta
 from fastani_tpu_torch.models import ani, device_cgi, glue, jitmap, output
-from fastani_tpu_torch.ops import hashing
+from fastani_tpu_torch.ops import cuda, hashing
 from fastani_tpu_torch.ops.cuda import resolve_device
 from fastani_tpu_torch.ops.stats import identities_for
 
@@ -243,7 +245,9 @@ def map_batch_cgi(frags: np.ndarray, qno_row: np.ndarray,
                   redo: set) -> None:
     """Map one batch and fold its rows into ``cgi``; the query genomes
     that own an overflowed fragment (which the device CGI leaves out) go
-    into ``redo``."""
+    into ``redo``.  The mapper's outputs may be its graphs' static
+    buffers: they are read here and folded on the stream before the next
+    batch is mapped."""
     as_t = lambda a: torch.as_tensor(a, device=mapper.index.device)
     out = mapper.map_batch(as_t(frags), as_t(qno_row), as_t(gid_row))
     counts = dict(zip(jitmap.COUNT_NAMES, out["counts"].tolist()))
@@ -356,7 +360,9 @@ def profiled(params: Parameters, dev: torch.device, stats: dict, log,
     (CPU activity, and CUDA on a card) and its Chrome trace is written to
     ``{profile_dir}/{phase}.pt.trace.json`` (path logged and kept in
     ``stats["profile_trace"]``, the write's seconds in
-    ``stats["t_trace_export"]``); without it, the body just runs."""
+    ``stats["t_trace_export"]``, each kernel's launches inside the traced
+    body in ``stats["profile_launches"]``); without it, the body just
+    runs."""
     if not params.profile_dir:
         yield
         return
@@ -365,9 +371,12 @@ def profiled(params: Parameters, dev: torch.device, stats: dict, log,
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
+    before = dict(cuda.LAUNCHES)
     with profile(activities=acts) as prof:
         yield
         _sync(dev)
+    stats["profile_launches"] = {name: cuda.LAUNCHES[name] - n
+                                 for name, n in before.items()}
     t0 = time.time()
     os.makedirs(params.profile_dir, exist_ok=True)
     path = os.path.join(params.profile_dir, f"{phase}.pt.trace.json")
@@ -531,6 +540,7 @@ def run_fast(params: Parameters, device="cuda",
         counts, sums = map_queries_cgi_device(stream, index, params, mapper,
                                               n_q, G, stats=stats)
         stats["t_map_fold"] = time.time() - t0      # before a trace's write
+    stats.update(mapper.graph_stats())
     log(f"INFO, fastani_tpu_torch, mapped {n_q} queries ({stream.F} "
         f"fragments) + device CGI in {stats['t_map_fold']:.2f}s")
 
@@ -577,6 +587,7 @@ def run(params: Parameters, device="cuda",
         with profiled(params, dev, stats, log, "map"):
             maps = map_queries_batched(stream, index, params, mapper, stats)
             stats["t_map"] = time.time() - t0       # before a trace's write
+        stats.update(mapper.graph_stats())
         log(f"INFO, fastani_tpu_torch, mapped {len(stream.paths)} queries "
             f"({stream.F} fragments) in {stats['t_map']:.2f}s")
         lengths = np.array([c.length for c in index.metadata], np.int64)

@@ -13,11 +13,15 @@ stream) and returns ``cudaGetLastError()``; ``check`` raises on non-zero.
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it — the
 only module state of the package.  ``chip_smoke.py`` zeroes it before
 driving the main path and reads it after, to show the path ran through
-every kernel.
+every kernel.  A CUDA graph replay calls no wrapper: its capture records
+the wrappers' calls (``captured_launches``, which leaves LAUNCHES as it
+was, since a capture launches nothing) and each replay adds them
+(``add_launches``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -38,8 +42,9 @@ SOURCES = {
     "compact": "compact.cu",
     "sort": "sort.cu",
     "walk": "walk.cu",
+    "fold": "fold.cu",
 }
-KERNELS = ("winnow", "compact", "sort", "sort_kv", "walk")
+KERNELS = ("winnow", "compact", "sort", "sort_kv", "walk", "fold")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -59,12 +64,34 @@ _SIGNATURES = {
              "fa_sort_rows_u32_kv": [_P, _P, _P, _P, _I, _I, _P]},
     "walk": {"fa_walk": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _P, _P, _P, _P]},
+    "fold": {"fa_fold_rows": [_P, _P, _P, _I, _I, _I, _P, _P, _P]},
 }
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around a CUDA graph capture: yields a dict that receives, on exit,
+    the launches the wrappers counted inside, which are then taken back
+    out of LAUNCHES."""
+    before = dict(LAUNCHES)
+    counted: Dict[str, int] = {}
+    try:
+        yield counted
+    finally:
+        counted.update({name: LAUNCHES[name] - n
+                        for name, n in before.items() if LAUNCHES[name] != n})
+        LAUNCHES.update(before)
+
+
+def add_launches(counted: Dict[str, int]) -> None:
+    """Count one replay of a graph whose capture counted ``counted``."""
+    for name, n in counted.items():
+        LAUNCHES[name] += n
 
 
 def nvcc_path() -> str:

@@ -89,7 +89,9 @@ def _slice_rows(mapper: jitmap.Mapper, frags: torch.Tensor, first: int,
     """Mapping rows (7, n) int64 (frag, qno, qsid, sid, shared, sketch,
     pos) of one slice of a query genome's fragments, whose first row is
     fragment ``first``; qsid is the fragment's number in the genome.  A
-    fragment over a cap is mapped again by ``glue.map_fallback_batch``."""
+    fragment over a cap is mapped again by ``glue.map_fallback_batch``.
+    The rows are copied out of the mapper's outputs (on a card its graphs'
+    buffers, which the next slice overwrites)."""
     dev = frags.device
     ids = torch.arange(first, first + frags.shape[0], dtype=torch.int32,
                        device=dev)

@@ -7,7 +7,10 @@ split (scripts/splitDatabase.sh:14-39).  Every process of a run calls the
 same function with the same arguments; ``distributed.plan`` gives it its
 cells.  Cell (r, q) maps slice q of each fragment batch (``B_local`` =
 ceil(frag_batch / n_q) rows) against reference shard r with the port's
-map step, one ``Mapper`` per shard.
+map step, one ``Mapper`` per shard.  On a card the mapper runs the step as
+CUDA graphs, which the cells of its shard share: each cell's outputs are
+read or folded on the stream before the next cell maps.  ``stats`` takes
+this process's graphs (``Mapper.graph_stats``, summed over its shards).
 
 * ``run_sharded_fused`` (the fast path): one device CGI table per cell;
   a finished query genome's bin rows are merged over the q cells of its
@@ -118,6 +121,14 @@ def _merge_stats(stats: dict, part: dict) -> None:
             stats[key] = stats.get(key, 0) + v
 
 
+def _graph_stats(stats: dict, mappers: Dict[int, jitmap.Mapper]) -> None:
+    """This process's map step graphs, summed over its shards' mappers
+    (``Mapper.graph_stats``: count, capture seconds, pool bytes)."""
+    for mapper in mappers.values():
+        for key, v in mapper.graph_stats().items():
+            stats[key] = stats.get(key, 0) + v
+
+
 def _finalize(run: _Run, cells: dict, qnos: List[int]) -> None:
     """Close query genomes on every shard row this process maps: the
     row's first cell folds the q-merge of its cells' bin rows, this
@@ -173,6 +184,7 @@ def run_sharded_fused(params: Parameters, n_r: Optional[int] = None,
             stream.evict_up_to(stream.qno_of_row(b0))
         if tail:
             _finalize(run, cells, tail)
+        _graph_stats(stats, run.mappers)
 
         # the device CGI left the overflowed fragments out: each shard
         # redoes every query genome that owns one, on any shard
@@ -254,6 +266,7 @@ def run_sharded(params: Parameters, n_r: Optional[int] = None,
                 parts.extend((qn, qs, gsid[sid], st, idt)
                              for qn, qs, sid, st, idt in cell_parts)
             stream.evict_up_to(stream.qno_of_row(b0))
+        _graph_stats(stats, run.mappers)
         gathered = distributed.gather((parts, local))
         for _, st in gathered or [(None, local)]:
             _merge_stats(stats, st)

@@ -36,11 +36,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
-# id(genome_bins index) -> (that index, its gid_of_bin)
-_GID_OF_BIN = {}
-
-
-def finalize_rows_atomic(tab, acc_counts, acc_sums, fin_qnos, bins_of_genome,
+def finalize_rows_atomic(tab, acc_counts, acc_sums, fin_qnos, ranges,
                          n_slots: int, rows=None):
     """The fold before the fixed order: per-(query, genome) segment sums by
     ``index_add_`` over each bin's genome id (float32 atomics on a card)."""
@@ -50,18 +46,15 @@ def finalize_rows_atomic(tab, acc_counts, acc_sums, fin_qnos, bins_of_genome,
     if not FIN:
         return tab, acc_counts, acc_sums
     dev = tab.device
-    n_rg = bins_of_genome.shape[1]
+    n_rg = ranges.shape[1]
     slots = fin_qnos % n_slots
     if rows is None:
         rows = tab[slots]
-    held, gid_of_bin = _GID_OF_BIN.get(id(bins_of_genome), (None, None))
-    if held is not bins_of_genome:   # the old fold's input, made once
-        gid_of_bin = torch.zeros(rows.shape[1] + 1, dtype=torch.long,
-                                 device=dev)
-        gid_of_bin[bins_of_genome] = torch.arange(
-            n_rg, device=dev).expand_as(bins_of_genome)
-        gid_of_bin = gid_of_bin[:-1]
-        _GID_OF_BIN[id(bins_of_genome)] = (bins_of_genome, gid_of_bin)
+    # the genomes' bin ranges cover the bins in order (output_size given:
+    # no read of the device)
+    gid_of_bin = torch.repeat_interleave(torch.arange(n_rg, device=dev),
+                                         ranges[1].long(),
+                                         output_size=rows.shape[1])
     occ = rows >= 0
     ident = torch.where(occ, rows.view(torch.float32), 0.0)
     seg = torch.where(occ, gid_of_bin[None, :], n_rg)
@@ -112,8 +105,8 @@ def fold_seconds(torch, fold, tab, bins, n_rg: int, reps: int = 5):
 
 
 def stretched_bins(np, n_rg: int, bins_each: int, longest: int):
-    """``genome_bins`` of n_rg genomes of ``bins_each`` bins, the last of
-    ``longest``."""
+    """``genome_bins`` ranges of n_rg genomes of ``bins_each`` bins, the
+    last of ``longest``."""
     from fastani_tpu_torch.models import device_cgi
 
     n = [bins_each] * (n_rg - 1) + [longest]
@@ -205,7 +198,7 @@ def main() -> int:
     print(json.dumps({
         "nvidia_smi": smi, "torch": torch.__version__,
         "genomes": a.genomes, "genome_bp": a.genome_bp,
-        "n_rg": n_rg, "B_tot": B_tot, "longest_bins": int(bins.shape[0]),
+        "n_rg": n_rg, "B_tot": B_tot, "longest_bins": int(bins[1].max()),
         "fold_block": device_cgi.FOLD_BLOCK, "runs": runs,
         "fixed_tsvs_byte_equal": same_fixed,
         "atomic_tsvs_byte_equal": same_atomic,

@@ -1,5 +1,6 @@
-"""Card-only parity tests of the port's CUDA kernels (K1-K5) against their
-plain PyTorch versions, and of the fast and exact paths (single-device and
+"""Card-only parity tests of the port's CUDA kernels (K1-K5 and the fold)
+against their plain PyTorch versions, of the map step's CUDA graphs
+against the eager step, and of the fast and exact paths (single-device and
 on a 2x2 mesh) and index persistence on the card against the same runs on
 the CPU.  Each test asks for the ``cuda_device`` fixture, which
 skips when no NVIDIA GPU is present; run them on the card (where JAX, which
@@ -465,3 +466,100 @@ def test_sharded_step_card_matches_cpu(cuda_device, tmp_path, monkeypatch):
     got, want = run(cuda_device), run(torch.device("cpu"))
     assert torch.equal(got[1], want[1]) and int(want[1].min()) > 0
     assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+
+
+def test_graphs_match_eager_on_goldens(cuda_device, tmp_path, monkeypatch):
+    """The golden queries in batches of 32 rows through a mapper with CUDA
+    graphs and one without: each batch's packed block, counts and fallback
+    mask bit-equal; the 32-row key runs once eagerly (the capture's
+    warm-up), then is captured and replays at least twice, and the tail
+    batch's key, seen once, is never captured; the kernel launches counted
+    equal."""
+    from fastani_tpu_torch.ops import cuda
+
+    q, r = _golden_fixtures(tmp_path, monkeypatch)
+    params = Parameters(query_sequences=q, ref_sequences=r,
+                        frag_batch=32).finalize()
+    index = ReferenceIndex.build_device(params, device=cuda_device)
+    stream = pipeline.FragmentStream(q, params)
+    mappers = [jitmap.Mapper(params, index, unit_factor=8, unit_chunk=24,
+                             graphs=g) for g in (True, False)]
+    assert [m.graphs for m in mappers] == [True, False]
+    launches, outs = [], []
+    for mapper in mappers:
+        cuda.reset_launches()
+        outs.append([])
+        for b0 in range(0, stream.F, 32):
+            frags, qno, gid = (torch.as_tensor(a, device=cuda_device)
+                               for a in stream.make_batch(b0, 32))
+            out = mapper.map_batch(frags, qno, gid)
+            outs[-1].append({k: v.clone() for k, v in out.items()})
+        torch.cuda.synchronize()
+        launches.append(dict(cuda.LAUNCHES))
+    assert stream.F > 96 and stream.F % 32
+    for a, b in zip(*outs):
+        for name in jitmap.OUTPUTS:
+            assert torch.equal(a[name], b[name]), name
+    assert int(outs[0][1]["counts"][0]) > 20
+    assert launches[0] == launches[1] and launches[0]["walk"] > 0
+    st = mappers[0].graph_stats()
+    assert st["graphs"] == 3 and st["t_capture"] > 0     # key 32 only
+    assert mappers[1].graph_stats()["graphs"] == 0
+
+
+@pytest.mark.parametrize("fin", [1, 2, 4])
+@pytest.mark.parametrize("bins", [1008, 2000, 4000])
+def test_fold_kernel_matches_plain(cuda_device, bins, fin):
+    """fold_rows on the card bit-equal to fold_rows_plain (counts and sum
+    bits) for 32 reference genomes of unequal bin counts, the longest of
+    ``bins``, 60% of the bins occupied; and one launch a call."""
+    from fastani_tpu_torch.models import device_cgi
+    from fastani_tpu_torch.ops import cuda
+
+    rng = np.random.default_rng(bins + fin)
+    n_bins = list(rng.integers(1, bins, 31)) + [bins]
+    n_rg, B_tot = len(n_bins), sum(n_bins)
+    ident = rng.uniform(76.0, 100.0, (fin, B_tot)).astype(np.float32)
+    rows = np.where(rng.uniform(size=(fin, B_tot)) < 0.6,
+                    ident.view(np.int32), -1).astype(np.int32)
+    bins_of = torch.as_tensor(device_cgi.genome_bins(
+        np.repeat(np.arange(n_rg), n_bins), n_rg))
+    want = device_cgi.fold_rows_plain(torch.from_numpy(rows), bins_of)
+    before = cuda.LAUNCHES["fold"]
+    got = device_cgi.fold_rows(torch.as_tensor(rows, device=cuda_device),
+                               bins_of.to(cuda_device))
+    assert cuda.LAUNCHES["fold"] == before + 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu().view(torch.int32),
+                       want[1].view(torch.int32))
+
+
+def test_capture_with_host_read_raises(cuda_device, tmp_path, monkeypatch):
+    """A stage that reads the device from the host cannot be captured: the
+    mapper's first batch runs eagerly (the warm-up), its second batch of
+    the key, the capture, raises instead of running on eagerly, and no
+    graph is kept."""
+    q, r = _golden_fixtures(tmp_path, monkeypatch)
+    params = Parameters(query_sequences=q, ref_sequences=r,
+                        frag_batch=32).finalize()
+    index = ReferenceIndex.build_device(params, device=cuda_device)
+    frags = torch.as_tensor(pipeline.FragmentStream(q, params)
+                            .make_batch(0, 32)[0], device=cuda_device)
+    build = l2walk.build_events
+
+    def reading(*args, **kw):
+        out = build(*args, **kw)
+        int(out[3].max())                       # a host read
+        return out
+
+    monkeypatch.setattr(l2walk, "build_events", reading)
+    mapper = jitmap.Mapper(params, index, unit_factor=8, unit_chunk=24)
+    assert int(mapper.map_batch(frags)["counts"][0]) > 20
+    with pytest.raises(RuntimeError):
+        mapper.map_batch(frags)
+    torch.cuda.synchronize()
+    assert mapper.graph_stats()["graphs"] == 0
+    monkeypatch.setattr(l2walk, "build_events", build)
+    eager = jitmap.Mapper(params, index, unit_factor=8, unit_chunk=24,
+                          graphs=False).map_batch(frags)
+    assert int(eager["counts"][0]) > 20
