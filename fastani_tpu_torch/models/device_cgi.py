@@ -53,12 +53,13 @@ def make_bin_tables(metadata_lengths, genome_of_seq, frag_len: int):
     return bin_start.astype(np.int32), gid_of_bin
 
 
-def update_tab(tab, packed, n_valid: int, genome_of_seq, bin_start,
+def update_tab(tab, packed, n_valid, genome_of_seq, bin_start,
                ident_lut, frag_len: int, n_slots: int, n_rg: int,
                frag_cap: int):
-    """Fold one batch's packed (7, U) block into ``tab`` (n_slots, B_tot)
-    int32 (float32 identity bits, -1 = empty), in place: exact 1-way dedupe
-    then the 2-way scatter-max."""
+    """Fold one batch's packed (7, U) block, of which the first
+    ``n_valid`` (an int or a 0-d tensor on the block's device) rows are
+    valid, into ``tab`` (n_slots, B_tot) int32 (float32 identity bits, -1 =
+    empty), in place: exact 1-way dedupe then the 2-way scatter-max."""
     frag, qno, qsid, sid, shared, sketch, pos = (packed[i].long()
                                                  for i in range(7))
     U = sid.shape[0]
@@ -199,7 +200,9 @@ def finalize_rows(tab, acc_counts, acc_sums, fin_qnos: torch.Tensor,
     counts, sums = fold_rows(rows, ranges)
     acc_counts.index_add_(0, fin_qnos, counts)
     acc_sums.index_add_(0, fin_qnos, sums)
-    tab[slots] = -1
+    # index_fill_, not tab[slots] = -1: the latter uploads the -1 with a
+    # pageable copy, which waits for the device
+    tab.index_fill_(0, slots, -1)
     return tab, acc_counts, acc_sums
 
 
@@ -317,7 +320,9 @@ class StreamingCGI:
         self._sums = torch.zeros((self.n_qg, self.n_rg), dtype=torch.float32,
                                  device=dev)
 
-    def update(self, packed: torch.Tensor, n_valid: int) -> None:
+    def update(self, packed: torch.Tensor, n_valid) -> None:
+        """Fold one batch's packed block; ``n_valid`` may be a 0-d device
+        tensor (the batch's ``counts[0]``), so nothing is read."""
         update_tab(self._tab, packed, n_valid, self._gos, self._bin_start,
                    self._lut, self.frag_len, self.n_slots, self.n_rg,
                    self.frag_cap)
@@ -337,15 +342,17 @@ class StreamingCGI:
         its max over the processes that run the shard's other cells.  The
         tables hold non-negative float32 bits or -1, so the max of the
         int32 words is the max of the identities."""
-        fin = torch.as_tensor(np.asarray(list(qnos), np.int64),
-                              device=self._tab.device)
+        fin = torch.from_numpy(np.asarray(list(qnos), np.int64))
+        if self._tab.device.type == "cuda":
+            # pinned and non_blocking: a pageable copy waits for the device
+            fin = fin.pin_memory().to(self._tab.device, non_blocking=True)
         rows = None
         if peers or reduce_max is not None:
             slots = fin % self.n_slots
             rows = self._tab[slots]
             for p in peers:
                 rows = torch.maximum(rows, p._tab[slots])
-                p._tab[slots] = -1
+                p._tab.index_fill_(0, slots, -1)
             if reduce_max is not None:
                 reduce_max(rows)
         finalize_rows(self._tab, self._counts, self._sums, fin,

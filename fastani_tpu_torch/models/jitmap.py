@@ -8,9 +8,14 @@ The step runs as three stages over one dict of buffers: ``stage_pre``
 offset) and ``stage_post`` (gate, fallback mask, pack, counts).
 ``map_step_packed`` runs them eagerly; on a card ``Mapper`` captures them
 as CUDA graphs (``StepGraphs``), the counterpart of the JAX package's
-``jax.jit`` of the step.  Between the stages the host reads one scalar a
-batch, the live unit count, to replay the chunk up to the last chunk with
-a valid unit (the JAX package's device-side ``while_loop`` bound).
+``jax.jit`` of the step.  ``Mapper.dispatch`` / ``collect`` /
+``collect_device`` are the JAX package's batch contract: every batch is
+padded to the mapper's height and passes ``row_valid``, so one captured
+key serves every batch of a run, and the readout is left to the caller.
+Between the stages the host reads one scalar a batch, the live unit
+count, to replay the chunk up to the last chunk with a valid unit (the
+JAX package's device-side ``while_loop`` bound: torch's ``CUDAGraph``
+has no conditional node).
 """
 
 from __future__ import annotations
@@ -271,16 +276,16 @@ def map_step_packed(cfg: MapperConfig, frags: torch.Tensor, t: IndexTables,
 
 
 class StepGraphs:
-    """The three stages of one key (the ``MapperConfig``, the batch height
-    and which row arrays are given) captured as CUDA graphs over static
+    """The three stages of one mapper's batches (its ``MapperConfig`` and
+    height, every input given) captured as CUDA graphs over static
     buffers, in one memory pool: they always replay in the order pre,
     chunk ..., post.  ``run`` copies a batch into the static inputs,
     replays pre, reads ``n_live``, replays chunk ``n_chunks`` times, then
-    post.  Its outputs are static buffers, which the key's next batch
-    overwrites: a caller consumes them (on the stream, or by a read)
-    before it maps again.  A capture that reads the device from the host
-    raises.  ``launches`` holds each graph's kernel launches (the wrappers'
-    counts during its capture); each replay adds them to
+    post, and copies the outputs into the next of two slots, which it
+    returns: the static outputs are overwritten by the next replay, a slot
+    by the replay after next.  A capture that reads the device from the
+    host raises.  ``launches`` holds each graph's kernel launches (the
+    wrappers' counts during its capture); each replay adds them to
     ``cuda.LAUNCHES``."""
 
     STAGES = (("pre", stage_pre), ("chunk", stage_chunk),
@@ -288,10 +293,9 @@ class StepGraphs:
 
     def __init__(self, cfg: MapperConfig, t: IndexTables, inputs: dict):
         """Capture on the current stream, which must not be the default
-        stream (``Mapper.map_batch`` captures on its side stream)."""
+        stream (``Mapper.dispatch`` captures on its side stream)."""
         self.cfg = cfg
-        self.bufs = {name: torch.empty_like(x) for name, x in inputs.items()
-                     if x is not None}
+        self.bufs = {name: torch.empty_like(x) for name, x in inputs.items()}
         self.graphs, self.launches = {}, {}
         reserved = torch.cuda.memory_reserved()
         t0 = time.perf_counter()
@@ -309,6 +313,9 @@ class StepGraphs:
             self.graphs[name], self.launches[name] = g, launches
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        self.slots = [{name: torch.empty_like(self.bufs[name])
+                       for name in OUTPUTS} for _ in range(2)]
+        self._turn = 0
 
     def _replay(self, name: str) -> None:
         self.graphs[name].replay()
@@ -320,12 +327,83 @@ class StepGraphs:
 
     def run(self, inputs: dict) -> dict:
         for name, x in inputs.items():
-            if x is not None:
-                self.bufs[name].copy_(x)
+            self.bufs[name].copy_(x)
         self._replay("pre")
         self.replay_chunks(n_chunks(self.cfg, self.bufs["n_live"]))
         self._replay("post")
-        return {name: self.bufs[name] for name in OUTPUTS}
+        slot = self.slots[self._turn]
+        self._turn ^= 1
+        for name in OUTPUTS:
+            slot[name].copy_(self.bufs[name])
+        return dict(slot)
+
+
+class HostInputs:
+    """A batch's four input arrays (INPUTS) padded to ``height`` rows and
+    sent to the device.  On a card they are staged in two sets of pinned
+    host buffers used in turn and copied with ``non_blocking``: the host
+    does not wait for the device, and a set is refilled only after the
+    event of the copy that read it.  On the CPU they are new arrays."""
+
+    def __init__(self, height: int, frag_len: int, dev: torch.device):
+        self.height, self.frag_len, self.dev = height, frag_len, dev
+        self._sets = ([self._pinned() for _ in range(2)]
+                      if dev.type == "cuda" else [])
+        self._events, self._turn = [None, None], 0
+
+    def _arrays(self) -> dict:
+        """One set of zeroed host arrays, by INPUTS name."""
+        H, L = self.height, self.frag_len
+        return dict(zip(INPUTS, (np.zeros((H, L), np.uint8),
+                                 np.zeros(H, np.int32), np.zeros(H, np.int32),
+                                 np.zeros(H, bool))))
+
+    def _pinned(self) -> tuple:
+        """One set of pinned tensors and the numpy views the host fills."""
+        pinned = {name: torch.from_numpy(a).pin_memory()
+                  for name, a in self._arrays().items()}
+        return pinned, {name: t.numpy() for name, t in pinned.items()}
+
+    def upload(self, frags: np.ndarray, qno_row: np.ndarray,
+               qsid_row: np.ndarray, n_used: int) -> Dict[str, torch.Tensor]:
+        n = len(frags)
+        if not 0 <= n_used <= n <= self.height:
+            raise ValueError(f"a batch of {n} rows, {n_used} used, for a "
+                             f"mapper of {self.height} rows")
+        on_card = self.dev.type == "cuda"
+        if on_card:
+            i = self._turn
+            self._turn ^= 1
+            if self._events[i] is not None:
+                self._events[i].synchronize()
+            pinned, host = self._sets[i]
+        else:
+            host = self._arrays()
+        for name, a in zip(INPUTS, (frags, qno_row, qsid_row)):
+            host[name][:n] = a
+            host[name][n:] = 0
+        host["row_valid"][:] = np.arange(self.height) < n_used
+        if not on_card:
+            return {name: torch.from_numpy(a) for name, a in host.items()}
+        out = {name: x.to(self.dev, non_blocking=True)
+               for name, x in pinned.items()}
+        self._events[i] = torch.cuda.Event()
+        self._events[i].record()
+        return out
+
+
+@dataclasses.dataclass
+class BatchHandle:
+    """One dispatched batch: the map step's OUTPUTS (with graphs, a slot
+    of ``StepGraphs``, good until the mapper's second dispatch after this
+    one) and, when dispatched ``to_host``, the outputs on the host (on a
+    card their copies in pinned memory, and the event recorded on the
+    stream after the copies)."""
+    packed: torch.Tensor            # (7, unit_cap) int32, valid rows first
+    counts: torch.Tensor            # (11,) int64, named by COUNT_NAMES
+    fallback_mask: torch.Tensor     # (height,) bool, real rows only
+    host: Optional[Dict[str, torch.Tensor]] = None
+    host_ready: Optional["torch.cuda.Event"] = None
 
 
 class Mapper:
@@ -333,23 +411,30 @@ class Mapper:
     work of ``JitMapper.__init__``): LUTs, index arrays padded with a
     sentinel margin, packed lookup keys and prev/next links.
 
-    ``graphs`` (default: on for an index on a card, always off on the
-    CPU) runs the step as CUDA graphs, the counterpart of the JAX
-    package's jit: a key's first batch runs eagerly (the capture's
-    warm-up; its launches count as eager ones), its second batch captures
-    the three stages (``StepGraphs``) and replays them, and later batches
-    of the key replay them.  A key seen once, such as a run's tail batch,
-    is never captured.  ``graphs=False`` runs every batch eagerly."""
+    Batches go through the JAX package's two-phase interface: ``dispatch``
+    pads a batch to the mapper's ``height`` (default
+    ``params.frag_batch``), always passes ``row_valid`` and enqueues the
+    step; ``collect`` reads a batch's rows to the host (the exact path),
+    ``collect_device`` leaves them on the device (the fast path).  Every
+    batch of a run thus has one shape.  ``graphs`` (default: on for an
+    index on a card, always off on the CPU) runs the step as CUDA graphs,
+    the counterpart of the JAX package's jit: the mapper's first batch
+    warms each stage up once eagerly, captures the three stages
+    (``StepGraphs``) and replays them, and every later batch replays them,
+    a run's padded tail included; a capture that fails raises.
+    ``graphs=False`` runs every batch eagerly.  ``map_batch`` maps one
+    batch at its own height, eagerly, for the heights no stream makes."""
 
     def __init__(self, params, index, unit_factor: int = 4,
-                 unit_chunk: int = 128, graphs: Optional[bool] = None):
+                 unit_chunk: int = 128, graphs: Optional[bool] = None,
+                 height: Optional[int] = None):
         self.params = params
         self.index = index
         on_card = index.device.type == "cuda"
         self.graphs = on_card if graphs is None else bool(graphs) and on_card
-        # key -> its graphs, None while the key has had one batch
-        self._steps: Dict[tuple, Optional[StepGraphs]] = {}
-        self._side = None       # the stream of the captures
+        self.height = int(params.frag_batch if height is None else height)
+        self._reset_batches()
+        self._side = None               # the captures' stream
         self.cfg = MapperConfig.from_params(params, index.freq_threshold,
                                             unit_factor, unit_chunk,
                                             index=index)
@@ -385,6 +470,15 @@ class Mapper:
             mi_sid=mi_sid, mi_wpos=mi_wpos, mi_prev=prev, mi_nxt=nxt,
             n_occ=M, **self._luts(params.sketch_cap))
 
+    def _reset_batches(self) -> None:
+        """No batch dispatched yet: no graphs, no staging buffers, no
+        counts."""
+        self._step: Optional[StepGraphs] = None
+        self._inputs: Optional[HostInputs] = None
+        self.eager_batches = self.replays = 0
+        self.t_warmup = 0.0
+        self.warmup_launches: Dict[str, int] = {}
+
     def _luts(self, sketch_cap: int) -> dict:
         """The min-hits and identity-gate LUTs over sketch sizes 0..cap."""
         k, pct = self.params.kmer_size, self.params.percentage_identity
@@ -398,10 +492,10 @@ class Mapper:
         """This mapper over the same index tables with other capacity caps
         (``MapperConfig`` fields: sketch_cap, hits_cap, cand_cap,
         l2_entry_cap, unit_cap); the LUTs follow sketch_cap.  The copy
-        starts with no graphs of its own."""
+        starts with no batch dispatched: no graphs of its own."""
         other = copy.copy(self)
         other.cfg = dataclasses.replace(self.cfg, **caps)
-        other._steps = {}
+        other._reset_batches()
         if other.cfg.sketch_cap != self.cfg.sketch_cap:
             other.tables = dataclasses.replace(
                 self.tables, **self._luts(other.cfg.sketch_cap))
@@ -409,29 +503,91 @@ class Mapper:
 
     def map_batch(self, frags: torch.Tensor, qno_row=None, qsid_row=None,
                   row_valid=None) -> dict:
-        """``map_step_packed`` of one batch; through the key's graphs when
-        the mapper runs graphs.  A replay's outputs are the graphs' static
-        buffers (see ``StepGraphs``)."""
-        inputs = dict(zip(INPUTS, (frags, qno_row, qsid_row, row_valid)))
-        key = (self.cfg, frags.shape[0],
-               *(x is not None for x in inputs.values()))
-        step = self._steps.get(key)
-        if step is None:
-            if not self.graphs or key not in self._steps:
-                # eager: without graphs, or the key's first batch, the
-                # capture's warm-up (a height seen once is never captured)
-                if self.graphs:
-                    self._steps[key] = None
-                return map_step_packed(self.cfg, frags, self.tables,
-                                       qno_row, qsid_row, row_valid)
-            step = self._steps[key] = self._capture(inputs)
-        return step.run(inputs)
+        """``map_step_packed`` of one batch at its own height, eagerly:
+        for the heights no stream makes (the parity helper
+        ``mesh._slice_rows``).  A run's batches go through ``dispatch``."""
+        return map_step_packed(self.cfg, frags, self.tables, qno_row,
+                               qsid_row, row_valid)
+
+    def dispatch(self, frags: np.ndarray, qno_row: np.ndarray,
+                 qsid_row: np.ndarray, n_used: int,
+                 to_host: bool = False) -> BatchHandle:
+        """Enqueue the map step of one batch of at most ``height`` host
+        rows, of which the first ``n_used`` are real: the rows are padded
+        to ``height`` with zeros (``HostInputs``) and ``row_valid`` is
+        ``arange(height) < n_used``, so the fallback mask holds real rows
+        only.  With graphs the only read of the device is ``n_live``
+        (``n_chunks``).  ``to_host`` (for ``collect``) also enqueues the
+        outputs' copies into pinned host memory right behind the step, on
+        its stream: a copy enqueued later would wait for the batches
+        dispatched in between.  Returns the batch's ``BatchHandle``."""
+        dev = self.index.device
+        if self._inputs is None:
+            self._inputs = HostInputs(self.height, self.cfg.frag_len, dev)
+        inputs = self._inputs.upload(frags, qno_row, qsid_row, n_used)
+        if self.graphs:
+            if self._step is None:
+                self._step = self._capture(inputs)
+            out = self._step.run(inputs)
+            self.replays += 1
+        else:
+            out = map_step_packed(self.cfg, inputs["frags"], self.tables,
+                                  *(inputs[name] for name in INPUTS[1:]))
+            self.eager_batches += 1
+        h = BatchHandle(**out)
+        if to_host and dev.type == "cuda":
+            h.host = {name: torch.empty(x.shape, dtype=x.dtype,
+                                        pin_memory=True).copy_(
+                                            x, non_blocking=True)
+                      for name, x in out.items()}
+            h.host_ready = torch.cuda.Event()
+            h.host_ready.record()
+        elif to_host:
+            h.host = out
+        return h
+
+    def collect_device(self, h: BatchHandle) -> dict:
+        """A dispatched batch's OUTPUTS, left on the device (the fast
+        path: the device CGI folds ``packed`` on the stream)."""
+        return {name: getattr(h, name) for name in OUTPUTS}
+
+    def collect(self, h: BatchHandle) -> dict:
+        """Read a dispatched batch to the host (the exact path): its
+        ``counts`` (a dict named by COUNT_NAMES), the ``n_valid`` packed
+        ``rows`` (7, n_valid) int32 (frag, qno, qsid, sid, shared, sketch,
+        mean_pos) and its ``fallback`` rows (the fallback mask's, used
+        only when a counter says a fragment overflowed).  The batch must
+        have been dispatched ``to_host``: only its copies' event is waited
+        for."""
+        if h.host is None:
+            raise ValueError("collect reads a batch dispatched to_host")
+        if h.host_ready is not None:
+            h.host_ready.synchronize()
+        out = h.host
+        counts = dict(zip(COUNT_NAMES, out["counts"].tolist()))
+        rows = out["packed"][:, :counts["n_valid"]].numpy().copy()
+        fallback = (np.nonzero(out["fallback_mask"].numpy())[0]
+                    if overflowed(counts) else np.zeros(0, np.int64))
+        return {"counts": counts, "rows": rows, "fallback": fallback}
 
     def _capture(self, inputs: dict) -> StepGraphs:
-        """The key's second batch: capture its stages on the side stream,
-        as ``torch.cuda.graph`` captures, without its synchronise, garbage
-        collection and cache flush."""
+        """The mapper's first batch: each stage once eagerly on its inputs
+        (``stage_pre``, one ``stage_chunk``, ``stage_post``: every kernel
+        loaded and its attributes set outside a capture; their launches
+        count, and are kept in ``warmup_launches``), then the capture of
+        the stages on the side stream, as ``torch.cuda.graph`` captures,
+        without its synchronise, garbage collection and cache flush."""
         dev = inputs["frags"].device
+        before = dict(cuda.LAUNCHES)
+        t0 = time.perf_counter()
+        bufs = dict(inputs)
+        for _, stage in StepGraphs.STAGES:
+            stage(self.cfg, self.tables, bufs)
+        del bufs
+        self.t_warmup = time.perf_counter() - t0
+        self.warmup_launches = {name: cuda.LAUNCHES[name] - n
+                                for name, n in before.items()
+                                if cuda.LAUNCHES[name] != n}
         if self._side is None:
             self._side = torch.cuda.Stream(dev)
         main = torch.cuda.current_stream(dev)
@@ -442,12 +598,18 @@ class Mapper:
         return step
 
     def graph_stats(self) -> dict:
-        """The graphs captured so far: their count, the seconds their
-        captures took and the device bytes their pool reserved."""
-        steps = [st for st in self._steps.values() if st is not None]
-        return {"graphs": len(StepGraphs.STAGES) * len(steps),
-                "t_capture": sum(st.capture_s for st in steps),
-                "graph_pool_bytes": sum(st.pool_bytes for st in steps)}
+        """The mapper's graphs and batches: the graphs' count, the seconds
+        of their capture and of the warm-up before it, the device bytes
+        their pool reserved, the batches run eagerly and replayed, and
+        the warm-up's kernel launches."""
+        st = self._step
+        return {"graphs": len(StepGraphs.STAGES) if st else 0,
+                "t_capture": st.capture_s if st else 0,
+                "t_warmup": self.t_warmup,
+                "graph_pool_bytes": st.pool_bytes if st else 0,
+                "eager_batches": self.eager_batches,
+                "replays": self.replays,
+                "warmup_launches": dict(self.warmup_launches)}
 
     def probe_hits(self, frags: torch.Tensor) -> torch.Tensor:
         """The L1 hit totals of one batch without the map step (the JAX

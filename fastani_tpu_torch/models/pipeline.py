@@ -2,19 +2,26 @@
 ``fastani_tpu/models/pipeline.py``: ``run_fast``, ``run`` and the pieces
 they run).  Reference semantics: src/cgi/core_genome_identity.cpp:27-167.
 
-``run_fast``: device index build -> Mapper -> one plain loop over fragment
-batches, each mapped (on a card through the mapper's CUDA graphs) and
-folded into the device CGI table, finished query genomes closed as the
-loop passes them -> one readout of the (Gq, Gr) matrices -> TSV and
-optional phylip matrix.  ``stats`` takes the graphs' count, capture
-seconds and pool bytes (``Mapper.graph_stats``) on both paths.
+Every batch of a run has one shape, as in the JAX package: ``make_batch``
+pads it to ``frag_batch`` rows and returns the count of real ones, and
+``Mapper.dispatch`` passes ``row_valid``, so on a card one captured set
+of CUDA graphs serves every batch, the tail included.
+
+``run_fast``: device index build -> Mapper -> ``map_queries_cgi_stream``
+(each batch dispatched and folded into the device CGI table, finished
+query genomes closed as the loop passes them, each batch's counts and
+fallback mask stacked on the device; the host reads only the map step's
+``n_live`` a batch) -> ``map_queries_cgi_finish`` (one read of the
+stacks, the (Gq, Gr) matrices, the redo) -> TSV and optional phylip
+matrix.  ``stats`` takes the mapper's ``graph_stats`` on both paths.
 
 ``run`` (the exact path: ``--exact``, ``--visualize``, ``-s``): the same
-index build and map step, but each batch's valid rows are read back and
-folded on the host per query genome (``ani.compute_cgi_arrays``, the
-reference's sequential float32 fold), so the TSV and ``.matrix`` are
-byte-equal to the reference's and the ``.visual`` file can be written;
-``-s`` runs the index's repeat sanity check first.
+index build and map step, batches dispatched two deep, but each batch's
+valid rows are read back and folded on the host per query genome
+(``ani.compute_cgi_arrays``, the reference's sequential float32 fold), so
+the TSV and ``.matrix`` are byte-equal to the reference's and the
+``.visual`` file can be written; ``-s`` runs the index's repeat sanity
+check first.
 
 A fragment over a capacity cap (sketch, L1, L2 or unit) is left out by the
 map step and mapped again exactly by ``glue.map_fallback_batch``: on the
@@ -32,12 +39,14 @@ workload before its loop (``autotune_hits_cap``).  With ``--profile DIR``
 (``params.profile_dir``) each path's mapping phase runs under
 ``torch.profiler`` (``profiled``), which writes a Chrome trace into DIR.
 The multi-device runner (``parallel/runner.py``) reuses the pieces:
-``tuned_mapper``, ``map_batch_cgi``, ``redo_queries``, ``map_batch_rows``,
-``rows_by_query``, ``fold_queries`` and ``write_results``.
+``tuned_mapper``, ``map_batch_cgi``, ``read_stacks``, ``redo_queries``,
+``two_deep``, ``batch_rows``, ``rows_by_query``, ``fold_queries`` and
+``write_results``.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import os
@@ -131,12 +140,14 @@ class FragmentStream:
             del self._cache[q]
 
     def make_batch(self, b0: int, B: int):
-        """Rows [b0, min(b0 + B, F)).  Returns (frags (n, L) u8, qno_row
-        (n,) i32, gid_row (n,) i32 querySeqIds)."""
+        """Rows [b0, b0 + B), zero-padded past F (the JAX package's
+        ``make_batch``: every batch of a run has one shape).  Returns
+        (frags (B, L) u8, qno_row (B,) i32, gid_row (B,) i32
+        querySeqIds, n_used, the rows that are real)."""
+        frags = np.zeros((B, self.params.frag_len), np.uint8)
+        qno_row = np.zeros(B, np.int32)
+        gid_row = np.zeros(B, np.int32)
         n = min(B, self.F - b0)
-        frags = np.zeros((n, self.params.frag_len), np.uint8)
-        qno_row = np.zeros(n, np.int32)
-        gid_row = np.zeros(n, np.int32)
         r = 0
         qno = self.qno_of_row(b0)
         while r < n:
@@ -148,7 +159,7 @@ class FragmentStream:
             gid_row[r:r + take] = qf.frag_ids[lo:lo + take]
             r += take
             qno += 1
-        return frags, qno_row, gid_row
+        return frags, qno_row, gid_row, n
 
 
 def cgi_stream_schedule(stream: FragmentStream, B: int, n_query_genomes: int):
@@ -208,55 +219,131 @@ def _redo_query_exact(qno: int, stream: FragmentStream,
             for r in res}, mapper
 
 
-def map_queries_cgi_device(stream: FragmentStream, index: ReferenceIndex,
+@dataclasses.dataclass
+class CGIRunHandle:
+    """A device CGI run whose stream phase is done and nothing read (the
+    JAX package's ``CGIRunHandle``): the CGI table and accumulators, and
+    each batch's counts and fallback mask stacked on the device."""
+    cgi: device_cgi.StreamingCGI
+    counts: torch.Tensor        # (n_batches, 11) int64, by COUNT_NAMES
+    fb_masks: torch.Tensor      # (n_batches, height) bool, real rows only
+    stream: FragmentStream
+    starts: list                # each batch's first row
+    n_query_genomes: int
+    n_ref_genomes: int
+
+
+def map_batch_cgi(frags: np.ndarray, qno_row: np.ndarray,
+                  gid_row: np.ndarray, n_used: int, mapper: "jitmap.Mapper",
+                  cgi: device_cgi.StreamingCGI, counts_row: torch.Tensor,
+                  mask_row: torch.Tensor) -> None:
+    """Map one batch (``Mapper.dispatch``, ``collect_device``) and fold its
+    rows into ``cgi``, all on the device; its counts and fallback mask go
+    into ``counts_row`` and ``mask_row``, rows of the run's device stacks
+    (``read_stacks``).  Nothing is read here but the map step's
+    ``n_live``."""
+    out = mapper.collect_device(mapper.dispatch(frags, qno_row, gid_row,
+                                                n_used))
+    cgi.update(out["packed"], out["counts"][0])
+    counts_row.copy_(out["counts"])
+    mask_row.copy_(out["fallback_mask"])
+
+
+def read_stacks(counts: torch.Tensor, masks: torch.Tensor, first_rows,
+                stream: FragmentStream, stats: dict) -> set:
+    """The one read of a run's per-batch stacks (``map_batch_cgi``'s rows;
+    row i is the batch, or slice, whose first row is global row
+    ``first_rows[i]``): each counter's maximum into ``stats`` under
+    COUNT_NAMES; then, only if a row's overflow flags are set, the
+    fallback masks, whose rows are counted in ``stats["fallback_frags"]``.
+    Returns the query genomes that own a fallback row."""
+    c = counts.cpu().numpy()
+    for i, key in enumerate(jitmap.COUNT_NAMES):
+        stats[key] = max(stats.get(key, 0), int(c[:, i].max()) if len(c)
+                         else 0)
+    redo = set()
+    flagged = np.nonzero(c[:, 1:5].any(axis=1))[0]
+    if len(flagged):
+        m = masks.cpu().numpy()
+        for i in flagged:
+            rows = np.nonzero(m[i])[0]
+            stats["fallback_frags"] += len(rows)
+            redo.update(stream.qno_of_row(first_rows[i] + int(r))
+                        for r in rows)
+    return redo
+
+
+def map_queries_cgi_stream(stream: FragmentStream, index: ReferenceIndex,
                            params: Parameters, mapper: "jitmap.Mapper",
-                           n_query_genomes: int, n_ref_genomes: int,
-                           stats: Optional[dict] = None):
-    """Map every query fragment and fold the rows into per-genome-pair
-    (counts, sums) on the device; one plain loop over batches, then the
-    exact redo of each query genome that owns an overflowed fragment.
-    Returns host (counts (Gq, Gr) int32, sums (Gq, Gr) float32)."""
+                           n_query_genomes: int,
+                           n_ref_genomes: int) -> CGIRunHandle:
+    """The stream phase of the device CGI path (the JAX package's
+    ``map_queries_cgi_stream``): every batch, padded to the mapper's
+    height, is dispatched and folded into the device CGI table, finished
+    query genomes are closed as the loop passes them, and each batch's
+    counts and fallback mask are stacked on the device.  The batch's
+    inputs reach the device through pinned buffers without a wait
+    (``jitmap.HostInputs``), and the only read of the device a batch is
+    the map step's ``n_live``: torch's ``CUDAGraph`` has no conditional
+    node, so the host sets the chunk replays (the JAX stream reads
+    nothing).  Everything else is read once by
+    ``map_queries_cgi_finish``."""
     B = params.frag_batch
-    stats = {} if stats is None else stats
-    stats.setdefault("fallback_frags", 0)
-    stats.setdefault("oracle_frags", 0)
     starts, fins, tail, n_slots = cgi_stream_schedule(stream, B,
                                                       n_query_genomes)
+    H = mapper.height
     cgi = device_cgi.StreamingCGI(index, params, n_query_genomes,
-                                  n_ref_genomes, n_slots=n_slots, frag_cap=B)
-    redo = set()               # query genomes that own an overflowed fragment
+                                  n_ref_genomes, n_slots=n_slots, frag_cap=H)
+    dev = index.device
+    counts = torch.zeros((len(starts), len(jitmap.COUNT_NAMES)),
+                         dtype=torch.int64, device=dev)
+    masks = torch.zeros((len(starts), H), dtype=torch.bool, device=dev)
     for i, b0 in enumerate(starts):
         if fins[i]:
             cgi.finalize_list(fins[i])
-        map_batch_cgi(*stream.make_batch(b0, B), mapper, cgi, stats, redo)
+        map_batch_cgi(*stream.make_batch(b0, B), mapper, cgi, counts[i],
+                      masks[i])
         stream.evict_up_to(stream.qno_of_row(b0))
     if tail:
         cgi.finalize_list(tail)
-    counts, sums = cgi.result()
-    redo_queries(counts, sums, sorted(redo), stream, params, mapper,
+    return CGIRunHandle(cgi, counts, masks, stream, starts, n_query_genomes,
+                        n_ref_genomes)
+
+
+def map_queries_cgi_finish(handle: CGIRunHandle, index: ReferenceIndex,
+                           params: Parameters, mapper: "jitmap.Mapper",
+                           stats: Optional[dict] = None):
+    """The readout of a streamed run (the JAX package's
+    ``map_queries_cgi_finish``): the counters' maxima and ``batches`` into
+    ``stats``, the fallback masks only if a batch overflowed
+    (``read_stacks``), the (counts, sums) matrices, then the exact redo of
+    each query genome that owns an overflowed fragment (which the device
+    CGI left out).  Returns host (counts (Gq, Gr) int32, sums (Gq, Gr)
+    float32)."""
+    stats = {} if stats is None else stats
+    stats.setdefault("fallback_frags", 0)
+    stats.setdefault("oracle_frags", 0)
+    redo = read_stacks(handle.counts, handle.fb_masks, handle.starts,
+                       handle.stream, stats)
+    stats["batches"] = len(handle.starts)
+    counts, sums = handle.cgi.result()
+    redo_queries(counts, sums, sorted(redo), handle.stream, params, mapper,
                  index.genome_of_seq(), stats)
     stats["redone_queries"] = len(redo)
     return counts, sums
 
 
-def map_batch_cgi(frags: np.ndarray, qno_row: np.ndarray,
-                  gid_row: np.ndarray, mapper: "jitmap.Mapper",
-                  cgi: device_cgi.StreamingCGI, stats: dict,
-                  redo: set) -> None:
-    """Map one batch and fold its rows into ``cgi``; the query genomes
-    that own an overflowed fragment (which the device CGI leaves out) go
-    into ``redo``.  The mapper's outputs may be its graphs' static
-    buffers: they are read here and folded on the stream before the next
-    batch is mapped."""
-    as_t = lambda a: torch.as_tensor(a, device=mapper.index.device)
-    out = mapper.map_batch(as_t(frags), as_t(qno_row), as_t(gid_row))
-    counts = dict(zip(jitmap.COUNT_NAMES, out["counts"].tolist()))
-    _note_batch(stats, counts)
-    if jitmap.overflowed(counts):
-        fb_rows = np.nonzero(out["fallback_mask"].cpu().numpy())[0]
-        stats["fallback_frags"] += len(fb_rows)
-        redo.update(qno_row[fb_rows].tolist())
-    cgi.update(out["packed"], counts["n_valid"])
+def map_queries_cgi_device(stream: FragmentStream, index: ReferenceIndex,
+                           params: Parameters, mapper: "jitmap.Mapper",
+                           n_query_genomes: int, n_ref_genomes: int,
+                           stats: Optional[dict] = None):
+    """Map every query fragment and fold the rows into per-genome-pair
+    (counts, sums) on the device: ``map_queries_cgi_stream``, then
+    ``map_queries_cgi_finish``.  Returns host (counts (Gq, Gr) int32, sums
+    (Gq, Gr) float32)."""
+    handle = map_queries_cgi_stream(stream, index, params, mapper,
+                                    n_query_genomes, n_ref_genomes)
+    return map_queries_cgi_finish(handle, index, params, mapper, stats)
 
 
 def redo_queries(counts: np.ndarray, sums: np.ndarray, qnos, stream,
@@ -277,33 +364,45 @@ def redo_queries(counts: np.ndarray, sums: np.ndarray, qnos, stream,
     return mapper
 
 
-def map_batch_rows(frags: np.ndarray, qno_row: np.ndarray,
-                   gid_row: np.ndarray, mapper: "jitmap.Mapper",
-                   fb_mapper: "jitmap.Mapper", params: Parameters,
-                   stats: dict):
-    """One batch's valid rows, read back for the host fold.  Its
-    overflowed fragments are mapped again by ``glue.map_fallback_batch``
-    with ``fb_mapper`` (the fallback mask is read only when the counts say
-    something overflowed).  Returns (row columns (qno, qsid, sid, start,
-    ident) per part, the mapper whose caps held the fallback).
-    ``stats["t_rows"]`` sums the host's reads of the rows and their
-    identities."""
-    as_t = lambda a: torch.as_tensor(a, device=mapper.index.device)
-    f = as_t(frags)
-    out = mapper.map_batch(f, as_t(qno_row), as_t(gid_row))
-    counts = dict(zip(jitmap.COUNT_NAMES, out["counts"].tolist()))
-    _note_batch(stats, counts)
+def two_deep(jobs):
+    """``Mapper.dispatch`` (``to_host``) over ``jobs`` (tuples (mapper,
+    frags, qno_row, gid_row, n_used, ...)) two deep, as the JAX package's
+    ``results_iter``: job i+1 is dispatched before job i is handed back,
+    so the host's work on job i (``Mapper.collect``, whose copies were
+    enqueued right behind job i) overlaps the device's on job i+1.
+    Yields (job, its ``BatchHandle``) in order; a handle is consumed
+    before the next is asked for (a mapper keeps two batches' outputs)."""
+    inflight = collections.deque()
+    for job in jobs:
+        inflight.append((job, job[0].dispatch(*job[1:5], to_host=True)))
+        if len(inflight) == 2:
+            yield inflight.popleft()
+    while inflight:
+        yield inflight.popleft()
+
+
+def batch_rows(mapper: "jitmap.Mapper", handle, frags: np.ndarray,
+               qno_row: np.ndarray, gid_row: np.ndarray,
+               fb_mapper: "jitmap.Mapper", params: Parameters, stats: dict):
+    """One dispatched batch's valid rows, read back for the host fold
+    (``Mapper.collect``).  Its overflowed fragments, real rows only, are
+    mapped again by ``glue.map_fallback_batch`` with ``fb_mapper``.
+    Returns (row columns (qno, qsid, sid, start, ident) per part, the
+    mapper whose caps held the fallback).  ``stats["t_rows"]`` sums the
+    host's reads of the rows and their identities."""
     t0 = time.time()
-    _, qno, qsid, sid, shared, sketch, pos = (
-        out["packed"][:, :counts["n_valid"]].cpu().numpy())
+    got = mapper.collect(handle)
+    _, qno, qsid, sid, shared, sketch, pos = got["rows"]
     ident, _ = identities_for(shared, sketch, params.kmer_size)
     parts = [(qno, qsid, sid, pos, ident)]
     stats["t_rows"] = stats.get("t_rows", 0) + time.time() - t0
-    if jitmap.overflowed(counts):
-        fb = np.nonzero(out["fallback_mask"].cpu().numpy())[0]
+    _note_batch(stats, got["counts"])
+    fb = got["fallback"]
+    if len(fb):
         stats["fallback_frags"] = stats.get("fallback_frags", 0) + len(fb)
         rows, fb_mapper = glue.map_fallback_batch(
-            f[as_t(fb)], fb_mapper, params, stats)
+            torch.as_tensor(frags[fb], device=fb_mapper.index.device),
+            fb_mapper, params, stats)
         r = fb[rows["frag"]]
         parts.append((qno_row[r], gid_row[r], rows["sid"],
                       rows["mean_pos"], rows["ident"]))
@@ -332,19 +431,25 @@ def map_queries_batched(stream: FragmentStream, index: ReferenceIndex,
                         stats: Optional[dict] = None) -> List[dict]:
     """Map every query fragment in shared batches and read each batch's
     valid rows back for the host fold (the JAX package's
-    ``map_queries_batched``; ``map_batch_rows`` per batch).  Returns
-    ``rows_by_query``'s column dict per query genome."""
+    ``map_queries_batched``): batches padded to the mapper's height,
+    dispatched two deep (``two_deep``), each read by ``batch_rows``.
+    Returns ``rows_by_query``'s column dict per query genome."""
     stats = {} if stats is None else stats
     for key in ("fallback_frags", "oracle_frags", "t_rows"):
         stats.setdefault(key, 0)
+    B = params.frag_batch
+
+    def jobs():
+        for b0 in range(0, stream.F, B):
+            yield (mapper, *stream.make_batch(b0, B))
+            stream.evict_up_to(stream.qno_of_row(b0))
+
     parts = []
     fb_mapper = mapper
-    for b0 in range(0, stream.F, params.frag_batch):
-        batch_parts, fb_mapper = map_batch_rows(
-            *stream.make_batch(b0, params.frag_batch), mapper, fb_mapper,
-            params, stats)
+    for (_, frags, qno_row, gid_row, _), h in two_deep(jobs()):
+        batch_parts, fb_mapper = batch_rows(mapper, h, frags, qno_row,
+                                            gid_row, fb_mapper, params, stats)
         parts.extend(batch_parts)
-        stream.evict_up_to(stream.qno_of_row(b0))
     return rows_by_query(parts, len(stream.paths))
 
 

@@ -74,12 +74,14 @@ def build_shards(params: Parameters, plan, dev, stats: dict,
 
 def shard_mapper(params: Parameters, index: ReferenceIndex, n_local: int,
                  B_local: int) -> jitmap.Mapper:
-    """One shard's map step for slices of B_local rows, in the JAX
-    runner's geometry: L2 units for max(4, int(1.7 G_local) + 8) candidate
-    regions a fragment, chunks of min(512, max(8, B_local)) units."""
+    """One shard's map step for slices of B_local rows (its height), in
+    the JAX runner's geometry: L2 units for max(4, int(1.7 G_local) + 8)
+    candidate regions a fragment, chunks of min(512, max(8, B_local))
+    units."""
     uf = max(4, int(1.7 * n_local) + 8)
     mapper = jitmap.Mapper(params, index, unit_factor=uf,
-                           unit_chunk=min(512, max(8, B_local)))
+                           unit_chunk=min(512, max(8, B_local)),
+                           height=B_local)
     return mapper.with_caps(unit_cap=min(B_local * uf,
                                          B_local * params.cand_cap))
 
@@ -90,8 +92,8 @@ def _slice_rows(mapper: jitmap.Mapper, frags: torch.Tensor, first: int,
     pos) of one slice of a query genome's fragments, whose first row is
     fragment ``first``; qsid is the fragment's number in the genome.  A
     fragment over a cap is mapped again by ``glue.map_fallback_batch``.
-    The rows are copied out of the mapper's outputs (on a card its graphs'
-    buffers, which the next slice overwrites)."""
+    The slice is mapped at its own height, eagerly (``Mapper.map_batch``):
+    a query genome's slices have heights a run's stream never makes."""
     dev = frags.device
     ids = torch.arange(first, first + frags.shape[0], dtype=torch.int32,
                        device=dev)

@@ -7,20 +7,27 @@ split (scripts/splitDatabase.sh:14-39).  Every process of a run calls the
 same function with the same arguments; ``distributed.plan`` gives it its
 cells.  Cell (r, q) maps slice q of each fragment batch (``B_local`` =
 ceil(frag_batch / n_q) rows) against reference shard r with the port's
-map step, one ``Mapper`` per shard.  On a card the mapper runs the step as
-CUDA graphs, which the cells of its shard share: each cell's outputs are
-read or folded on the stream before the next cell maps.  ``stats`` takes
-this process's graphs (``Mapper.graph_stats``, summed over its shards).
+map step, one ``Mapper`` of height ``B_local`` per shard.  A batch is
+padded to n_q x ``B_local`` rows (``FragmentStream.make_batch``), so every
+slice has ``B_local`` rows and passes ``row_valid`` (``Mapper.dispatch``):
+on a card each shard's mapper captures one set of CUDA graphs, which its
+cells share and every slice replays, the tail's included; a slice with no
+real row is skipped.  ``stats`` takes this process's graphs
+(``Mapper.graph_stats``, summed over its shards).
 
 * ``run_sharded_fused`` (the fast path): one device CGI table per cell;
-  a finished query genome's bin rows are merged over the q cells of its
-  shard (``StreamingCGI.finalize_list``, the JAX ``lax.pmax``) and folded
-  into the shard's (Gq, G_local) matrices; a query genome with a fragment
-  over a cap is redone exactly per shard (``pipeline.redo_queries``, on
-  the shard's device); the shards' matrices are gathered and placed at
-  their global genome ids (``mesh.global_genomes``) on process 0.
-* ``run_sharded`` (the exact path): each cell's rows are read back
-  (``pipeline.map_batch_rows``), renumbered to the unsharded index's
+  each cell's counts and fallback masks are stacked on the device
+  (``pipeline.map_batch_cgi``) and read once after the loop
+  (``pipeline.read_stacks``); a finished query genome's bin rows are
+  merged over the q cells of its shard (``StreamingCGI.finalize_list``,
+  the JAX ``lax.pmax``) and folded into the shard's (Gq, G_local)
+  matrices; a query genome with a fragment over a cap is redone exactly
+  per shard (``pipeline.redo_queries``, on the shard's device); the
+  shards' matrices are gathered and placed at their global genome ids
+  (``mesh.global_genomes``) on process 0.
+* ``run_sharded`` (the exact path): the cells' slices are dispatched two
+  deep (``pipeline.two_deep``), each cell's rows read back
+  (``pipeline.batch_rows``), renumbered to the unsharded index's
   seqIds (``mesh.global_layout``) and gathered to process 0, which folds
   each query genome's union with ``ani.compute_cgi_arrays``.  Every reference
   genome and contig lives in one shard, the 1-way dedupe is per (genome,
@@ -62,13 +69,15 @@ class _Run:
     stream: pipeline.FragmentStream
     B_local: int
 
-    def slices(self, n: int):
-        """(r, q, rows of slice q) of this process's mapping cells in a
-        batch of n rows."""
+    def slices(self, n_used: int):
+        """(r, q, rows of slice q, its real rows) of this process's mapping
+        cells in a padded batch of which the first n_used rows are real;
+        a slice with no real row is left out."""
         B = self.B_local
         for r, q in self.plan.cells:
-            if r in self.mappers and q * B < n:
-                yield r, q, slice(q * B, min((q + 1) * B, n))
+            if r in self.mappers and q * B < n_used:
+                yield (r, q, slice(q * B, (q + 1) * B),
+                       min(B, n_used - q * B))
 
 
 def _prepare(params: Parameters, n_r: Optional[int], n_q: Optional[int],
@@ -126,7 +135,12 @@ def _graph_stats(stats: dict, mappers: Dict[int, jitmap.Mapper]) -> None:
     (``Mapper.graph_stats``: count, capture seconds, pool bytes)."""
     for mapper in mappers.values():
         for key, v in mapper.graph_stats().items():
-            stats[key] = stats.get(key, 0) + v
+            if isinstance(v, dict):
+                total = stats.setdefault(key, {})
+                for name, n in v.items():
+                    total[name] = total.get(name, 0) + n
+            else:
+                stats[key] = stats.get(key, 0) + v
 
 
 def _finalize(run: _Run, cells: dict, qnos: List[int]) -> None:
@@ -169,22 +183,35 @@ def run_sharded_fused(params: Parameters, n_r: Optional[int] = None,
             run.shards[r], params, n_queries, run.n_local[r],
             n_slots=n_slots, frag_cap=run.B_local)
             for r, q in plan.cells if r in run.mappers}
+        # each cell's per-batch counts and fallback masks, on its device
+        stacks = {cell: (torch.zeros((len(starts), len(jitmap.COUNT_NAMES)),
+                                     dtype=torch.int64, device=dev),
+                         torch.zeros((len(starts), run.B_local),
+                                     dtype=torch.bool, device=dev))
+                  for cell in cells}
 
         t0 = time.time()
         local = {"fallback_frags": 0, "oracle_frags": 0}
-        redo = set()       # query genomes that own an overflowed fragment
         for i, b0 in enumerate(starts):
             if fins[i]:
                 _finalize(run, cells, fins[i])
-            frags, qno_row, gid_row = stream.make_batch(b0, B)
-            for r, q, sl in run.slices(len(frags)):
+            frags, qno_row, gid_row, n_used = stream.make_batch(b0, B)
+            for r, q, sl, n in run.slices(n_used):
+                counts, masks = stacks[(r, q)]
                 pipeline.map_batch_cgi(frags[sl], qno_row[sl], gid_row[sl],
-                                       run.mappers[r], cells[(r, q)], local,
-                                       redo)
+                                       n, run.mappers[r], cells[(r, q)],
+                                       counts[i], masks[i])
             stream.evict_up_to(stream.qno_of_row(b0))
         if tail:
             _finalize(run, cells, tail)
         _graph_stats(stats, run.mappers)
+        # the run's one read of the stacks: the counters, and the query
+        # genomes that own an overflowed fragment (only if one did)
+        redo = set()
+        for (r, q), (counts, masks) in stacks.items():
+            redo |= pipeline.read_stacks(
+                counts, masks, [b0 + q * run.B_local for b0 in starts],
+                stream, local)
 
         # the device CGI left the overflowed fragments out: each shard
         # redoes every query genome that owns one, on any shard
@@ -254,18 +281,25 @@ def run_sharded(params: Parameters, n_r: Optional[int] = None,
         t0 = time.time()
         B = run.B_local * plan.n_q
         local = {"fallback_frags": 0, "oracle_frags": 0}
+
+        def jobs():
+            for b0 in range(0, stream.F, B):
+                frags, qno_row, gid_row, n_used = stream.make_batch(b0, B)
+                for r, q, sl, n in run.slices(n_used):
+                    yield (run.mappers[r], frags[sl], qno_row[sl],
+                           gid_row[sl], n, r)
+                stream.evict_up_to(stream.qno_of_row(b0))
+
         parts = []         # (qno, qsid, global sid, start, ident) columns
         fb_mappers = dict(run.mappers)
-        for b0 in range(0, stream.F, B):
-            frags, qno_row, gid_row = stream.make_batch(b0, B)
-            for r, q, sl in run.slices(len(frags)):
-                cell_parts, fb_mappers[r] = pipeline.map_batch_rows(
-                    frags[sl], qno_row[sl], gid_row[sl], run.mappers[r],
-                    fb_mappers[r], params, local)
-                gsid = layout.global_sid[r]
-                parts.extend((qn, qs, gsid[sid], st, idt)
-                             for qn, qs, sid, st, idt in cell_parts)
-            stream.evict_up_to(stream.qno_of_row(b0))
+        for (mapper, frags, qno_row, gid_row, _, r), h in \
+                pipeline.two_deep(jobs()):
+            cell_parts, fb_mappers[r] = pipeline.batch_rows(
+                mapper, h, frags, qno_row, gid_row, fb_mappers[r], params,
+                local)
+            gsid = layout.global_sid[r]
+            parts.extend((qn, qs, gsid[sid], st, idt)
+                         for qn, qs, sid, st, idt in cell_parts)
         _graph_stats(stats, run.mappers)
         gathered = distributed.gather((parts, local))
         for _, st in gathered or [(None, local)]:

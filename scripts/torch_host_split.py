@@ -12,8 +12,9 @@ are mapped against all 32 through the CLI's fast path with ``--profile``
 ``--tree`` (default: this checkout; give an unpacked older commit to
 measure it).  Each of these functions, where the tree has it, runs inside
 a ``torch.profiler.record_function`` range of its name:
-``pipeline.map_batch_cgi`` (one batch: map step, counts read, CGI
-update), ``jitmap.Mapper.map_batch``, ``jitmap.locate_units``,
+``pipeline.map_batch_cgi`` (one batch: map step, CGI update; on older
+trees also the counts read), ``jitmap.Mapper.dispatch`` (older trees:
+``jitmap.Mapper.map_batch``), ``jitmap.locate_units``,
 ``l2walk.l2_walk_units`` and ``l2walk.build_events`` (once a chunk when
 the chunk runs eagerly), ``jitmap.stage_chunk``,
 ``jitmap.StepGraphs.replay_chunks`` (a batch's chunk replays) and
@@ -23,8 +24,9 @@ takes it).
 
 From the trace: ``chip_smoke.trace_summary`` (the window, first event to
 last; the device's kernels, their count a batch, summed time and idle
-share), each host op's self time (its span less the spans nested in it on
-its thread) summed by name, the top ten, each range's summed span and
+share, and the twenty kernels with the most device time), each host
+op's self time (its span less the spans nested in it on its thread)
+summed by name, the top ten, each range's summed span and
 share of the window, and the host's launch calls (CUDA API calls whose
 name holds ``Launch``, graph launches among them) and memory copies a
 batch.  Prints one JSON line,
@@ -49,6 +51,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 # (module, attribute path, range name) of the functions timed as ranges
 RANGES = (
     ("pipeline", "map_batch_cgi", "batch"),
+    ("jitmap", "Mapper.dispatch", "dispatch"),
     ("jitmap", "Mapper.map_batch", "map_batch"),
     ("jitmap", "locate_units", "locate_units"),
     ("l2walk", "l2_walk_units", "l2_walk_units"),
@@ -125,7 +128,7 @@ def summarize(chip_smoke, path: str, batches: int) -> dict:
     idle share), with the host's side: each op's self time, the ranges'
     spans, and the launch calls and copies."""
     events = chip_smoke.trace_events(path)
-    base = chip_smoke.trace_summary(events)
+    base = chip_smoke.trace_summary(events, top=20)
     window = base["window_s"] * 1e6
     st = self_times(events)
     ops = sorted(((k, v) for k, v in st.items()

@@ -469,12 +469,13 @@ def test_sharded_step_card_matches_cpu(cuda_device, tmp_path, monkeypatch):
 
 
 def test_graphs_match_eager_on_goldens(cuda_device, tmp_path, monkeypatch):
-    """The golden queries in batches of 32 rows through a mapper with CUDA
-    graphs and one without: each batch's packed block, counts and fallback
-    mask bit-equal; the 32-row key runs once eagerly (the capture's
-    warm-up), then is captured and replays at least twice, and the tail
-    batch's key, seen once, is never captured; the kernel launches counted
-    equal."""
+    """The golden queries in batches of 32 rows, the tail padded to 32
+    with row_valid, through a mapper with CUDA graphs and one without:
+    each batch's packed block, counts and fallback mask bit-equal, and the
+    rows ``collect`` reads two deep equal; the graphs' mapper warms up and
+    captures at its first batch and replays every batch, the padded tail
+    included (3 graphs, no batch eager); the kernel launches equal once
+    the warm-up's are taken out."""
     from fastani_tpu_torch.ops import cuda
 
     q, r = _golden_fixtures(tmp_path, monkeypatch)
@@ -485,26 +486,37 @@ def test_graphs_match_eager_on_goldens(cuda_device, tmp_path, monkeypatch):
     mappers = [jitmap.Mapper(params, index, unit_factor=8, unit_chunk=24,
                              graphs=g) for g in (True, False)]
     assert [m.graphs for m in mappers] == [True, False]
-    launches, outs = [], []
+    starts = range(0, stream.F, 32)
+    launches, outs, rows = [], [], []
     for mapper in mappers:
         cuda.reset_launches()
         outs.append([])
-        for b0 in range(0, stream.F, 32):
-            frags, qno, gid = (torch.as_tensor(a, device=cuda_device)
-                               for a in stream.make_batch(b0, 32))
-            out = mapper.map_batch(frags, qno, gid)
+        for b0 in starts:
+            out = mapper.collect_device(
+                mapper.dispatch(*stream.make_batch(b0, 32)))
             outs[-1].append({k: v.clone() for k, v in out.items()})
         torch.cuda.synchronize()
         launches.append(dict(cuda.LAUNCHES))
+        jobs = ((mapper, *stream.make_batch(b0, 32)) for b0 in starts)
+        rows.append([mapper.collect(h) for _, h in pipeline.two_deep(jobs)])
     assert stream.F > 96 and stream.F % 32
     for a, b in zip(*outs):
         for name in jitmap.OUTPUTS:
             assert torch.equal(a[name], b[name]), name
+    for a, b in zip(*rows):
+        assert a["counts"] == b["counts"]
+        np.testing.assert_array_equal(a["rows"], b["rows"])
+        np.testing.assert_array_equal(a["fallback"], b["fallback"])
     assert int(outs[0][1]["counts"][0]) > 20
-    assert launches[0] == launches[1] and launches[0]["walk"] > 0
     st = mappers[0].graph_stats()
-    assert st["graphs"] == 3 and st["t_capture"] > 0     # key 32 only
-    assert mappers[1].graph_stats()["graphs"] == 0
+    assert st["graphs"] == 3 and st["t_capture"] > 0      # one key
+    assert st["eager_batches"] == 0 and st["replays"] == 2 * len(starts)
+    warm = st["warmup_launches"]
+    assert warm["walk"] == 1 and launches[1]["walk"] > 0
+    assert {k: n - warm.get(k, 0) for k, n in launches[0].items()} == \
+        launches[1]
+    eager = mappers[1].graph_stats()
+    assert eager["graphs"] == 0 and eager["eager_batches"] == 2 * len(starts)
 
 
 @pytest.mark.parametrize("fin", [1, 2, 4])
@@ -536,30 +548,31 @@ def test_fold_kernel_matches_plain(cuda_device, bins, fin):
 
 def test_capture_with_host_read_raises(cuda_device, tmp_path, monkeypatch):
     """A stage that reads the device from the host cannot be captured: the
-    mapper's first batch runs eagerly (the warm-up), its second batch of
-    the key, the capture, raises instead of running on eagerly, and no
-    graph is kept."""
+    mapper's first batch warms the stages up eagerly (where the read
+    runs), then its capture raises instead of running the batch eagerly,
+    and no graph is kept."""
     q, r = _golden_fixtures(tmp_path, monkeypatch)
     params = Parameters(query_sequences=q, ref_sequences=r,
                         frag_batch=32).finalize()
     index = ReferenceIndex.build_device(params, device=cuda_device)
-    frags = torch.as_tensor(pipeline.FragmentStream(q, params)
-                            .make_batch(0, 32)[0], device=cuda_device)
+    batch = pipeline.FragmentStream(q, params).make_batch(0, 32)
     build = l2walk.build_events
+    warmed = []
 
     def reading(*args, **kw):
         out = build(*args, **kw)
-        int(out[3].max())                       # a host read
+        warmed.append(int(out[3].max()))        # a host read
         return out
 
     monkeypatch.setattr(l2walk, "build_events", reading)
     mapper = jitmap.Mapper(params, index, unit_factor=8, unit_chunk=24)
-    assert int(mapper.map_batch(frags)["counts"][0]) > 20
     with pytest.raises(RuntimeError):
-        mapper.map_batch(frags)
+        mapper.dispatch(*batch)
     torch.cuda.synchronize()
-    assert mapper.graph_stats()["graphs"] == 0
+    assert len(warmed) == 1                     # the warm-up's chunk
+    st = mapper.graph_stats()
+    assert st["graphs"] == 0 and st["replays"] == st["eager_batches"] == 0
     monkeypatch.setattr(l2walk, "build_events", build)
     eager = jitmap.Mapper(params, index, unit_factor=8, unit_chunk=24,
-                          graphs=False).map_batch(frags)
-    assert int(eager["counts"][0]) > 20
+                          graphs=False)
+    assert int(eager.collect_device(eager.dispatch(*batch))["counts"][0]) > 20

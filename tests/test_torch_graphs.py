@@ -1,7 +1,8 @@
 """The map step's three stages (``jitmap.stage_pre``, ``stage_chunk`` at
 its device offset, ``stage_post``) against the JAX package's
 ``map_step_packed`` and against the L2 chunk loop sliced on the host;
-mapper copies and their graph caches; the launch accounting of a capture;
+mapper copies and their graphs; the capture at a mapper's first batch and
+the replay of a padded tail; the launch accounting of a capture;
 and the fold's plain version (``device_cgi.fold_rows_plain``) against
 ``fold_sequential``.  The graphs themselves and the fold kernel run on the
 card (``tests/test_torch_cuda.py``)."""
@@ -106,21 +107,25 @@ def test_staged_step_matches_jax_and_sliced_loop(world, padded):
 
 
 def test_mapper_copies_keep_their_own_graphs(world):
-    """with_caps gives a copy its own (empty) graph cache and its own
-    config; graphs are off on the CPU whatever the constructor is told."""
+    """with_caps gives a copy no graphs and no batches of its own and its
+    own config; graphs are off on the CPU whatever the constructor is
+    told."""
     _, _, tp, tidx, frags = world
     mapper = jitmap.Mapper(tp, tidx, unit_factor=4, unit_chunk=32,
                            graphs=True)
     assert mapper.graphs is False
-    mapper._steps[("key",)] = object()
+    mapper._step = step = object()
+    mapper.eager_batches = 2
     other = mapper.with_caps(hits_cap=2048, sketch_cap=256)
-    assert other._steps == {} and other._steps is not mapper._steps
-    assert ("key",) in mapper._steps
+    assert other._step is None and mapper._step is step
+    assert other.eager_batches == 0 and mapper.eager_batches == 2
+    assert other.height == mapper.height == tp.frag_batch
     assert other.cfg.hits_cap == 2048 and mapper.cfg.hits_cap != 2048
     assert other.tables.gate.shape[0] == 257
     assert mapper.tables.gate.shape[0] == mapper.cfg.sketch_cap + 1
-    assert other.graph_stats() == {"graphs": 0, "t_capture": 0,
-                                   "graph_pool_bytes": 0}
+    assert other.graph_stats() == {
+        "graphs": 0, "t_capture": 0, "t_warmup": 0.0, "graph_pool_bytes": 0,
+        "eager_batches": 0, "replays": 0, "warmup_launches": {}}
     f = torch.from_numpy(frags)
     a = mapper.with_caps(hits_cap=8192).map_batch(f)
     b = mapper.map_batch(f)
@@ -128,15 +133,21 @@ def test_mapper_copies_keep_their_own_graphs(world):
         assert torch.equal(a[name], b[name]), name
 
 
-def test_mapper_captures_a_key_at_its_second_batch(world, monkeypatch):
-    """With graphs on, a key's first batch runs eagerly (the warm-up), its
-    second captures (``Mapper._capture``) and replays, later batches replay
-    the same graphs; a height seen once is never captured; ``graph_stats``
-    counts captured keys only.  The capture is stood in for on the CPU by
-    a step that runs the stages eagerly."""
+def test_mapper_captures_at_its_first_batch_and_replays_the_padded_tail(
+        world, monkeypatch):
+    """With graphs on, the mapper's first batch captures
+    (``Mapper._capture``, which warms the stages up first) and replays,
+    later batches replay the same graphs, and a tail batch padded to the
+    mapper's height with row_valid replays them too: no batch runs
+    eagerly.  Each handle holds the map step's outputs of its padded
+    batch; ``graph_stats`` counts the graphs and the replays; ``collect``
+    and ``dispatch`` reject a batch not dispatched ``to_host`` and one
+    taller than the mapper.  The capture is stood in for on the CPU by a
+    step that runs the stages eagerly."""
     _, _, tp, tidx, frags = world
     mapper = jitmap.Mapper(tp, tidx, unit_factor=4, unit_chunk=32)
     mapper.graphs = True
+    H = mapper.height
     captured, runs = [], []
 
     class Step:
@@ -144,25 +155,43 @@ def test_mapper_captures_a_key_at_its_second_batch(world, monkeypatch):
 
         def run(self, inputs):
             runs.append(inputs["frags"].shape[0])
-            return jitmap.map_step_packed(mapper.cfg, inputs["frags"],
-                                          mapper.tables)
+            return jitmap.map_step_packed(
+                mapper.cfg, inputs["frags"], mapper.tables,
+                *(inputs[name] for name in jitmap.INPUTS[1:]))
 
     def capture(inputs):
         captured.append(inputs["frags"].shape[0])
         return Step()
 
     monkeypatch.setattr(mapper, "_capture", capture)
-    f = torch.from_numpy(frags)
-    want = jitmap.map_step_packed(mapper.cfg, f, mapper.tables)
-    for i in range(4):
-        out = mapper.map_batch(f)
+    F = len(frags)
+    assert F < H
+    qno = np.full(F, 2, np.int32)
+    qsid = np.arange(F, dtype=np.int32)
+    for i, n in enumerate((F, F, F, 7)):       # then a tail of 7 rows
+        h = mapper.dispatch(frags[:n], qno[:n], qsid[:n], n)
+        pad = np.zeros((H, frags.shape[1]), np.uint8)
+        pad[:n] = frags[:n]
+        padi = lambda a: torch.from_numpy(np.concatenate(
+            [a[:n], np.zeros(H - n, np.int32)]))
+        want = jitmap.map_step_packed(mapper.cfg, torch.from_numpy(pad),
+                                      mapper.tables, padi(qno), padi(qsid),
+                                      torch.arange(H) < n)
+        got = mapper.collect_device(h)
         for name in jitmap.OUTPUTS:
-            assert torch.equal(out[name], want[name]), (i, name)
-        assert captured == [len(f)] * (i > 0) and runs == [len(f)] * i
-    mapper.map_batch(f[:7])                     # a tail: eager, not captured
-    assert captured == [len(f)] and runs == [len(f)] * 3
-    assert mapper.graph_stats() == {"graphs": 3, "t_capture": 0.5,
-                                    "graph_pool_bytes": 1024}
+            assert torch.equal(got[name], want[name]), (i, name)
+        assert int(got["counts"][0]) > (30 if n == F else 0)
+        assert captured == [H] and runs == [H] * (i + 1)
+    assert mapper.graph_stats() == {
+        "graphs": 3, "t_capture": 0.5, "t_warmup": 0.0,
+        "graph_pool_bytes": 1024, "eager_batches": 0, "replays": 4,
+        "warmup_launches": {}}
+    with pytest.raises(ValueError):             # not dispatched to_host
+        mapper.collect(h)
+    with pytest.raises(ValueError):
+        mapper.dispatch(np.zeros((H + 1, frags.shape[1]), np.uint8),
+                        np.zeros(H + 1, np.int32), np.zeros(H + 1, np.int32),
+                        H + 1)
 
 
 def test_captured_launches_restore_and_replay():
