@@ -6,7 +6,7 @@
 Phases, one JSON line each; any failure exits non-zero:
 
 1. device: name, count, ``nvidia-smi`` name and power limit; build the
-   five CUDA sources (one nvcc each, all at once).
+   six CUDA sources (one nvcc each, all at once).
 2. golden: tests/test_golden_frozen.py's fixtures (seed 2024) through the
    port's CLI on the card, against tests/golden/one2one.txt and multi.txt:
    the fast path (same rows, equal counts, ANI within 0.1), then the exact
@@ -98,11 +98,17 @@ Phases, one JSON line each; any failure exits non-zero:
    kernel's count in the trace equal to its launches in the traced window,
    replayed graphs' included): its wall, the trace's window, summed device
    kernel time, idle share and top kernels.
-4. kernels: K1-K3 and the fold at each of their main-path call sites, on
-   the inputs the path itself gives them: ``run_fast`` on the first three
-   mid genomes against all 32 (the mid index, two batches) with the
-   wrappers wrapped and the map step eager, keeping each call site's
-   first inputs and counting its calls.  Each
+4. kernels: K1-K3, the fold and the L2 event build's E1 and E2
+   (``csrc/events.cu``, around K4) at each of their main-path call
+   sites, on the inputs the path itself gives them: ``run_fast`` on the
+   first three mid genomes against all 32 (the mid index, two batches)
+   with the wrappers wrapped and the map step eager, keeping each call
+   site's first inputs and counting its calls; then the exact path on the
+   same queries with E1's and E2's wrappers wrapped.  E1 and E2 are held
+   bit-equal to their plain versions at every call site of both runs
+   (``check_sites``), and timed at the first chunk of the fast run, U
+   512 x T 2033 (their launches on mid are phase 3's, once a chunk as
+   K4, which every path checks: ``events_at_k4``).  Each other
    site's launches on mid (index-build calls, plus calls per batch times
    phase 3's batches) must sum to phase 3's count of its kernel less its
    mapper's warm-up.  K4 sorts
@@ -175,6 +181,9 @@ REPLACES = {
     "walk": "fastani_tpu/models/l2walk.py:298 (_walk_pallas_call)",
     # no Pallas kernel: the JAX fold is XLA code (finalize_rows)
     "fold": "fastani_tpu/models/device_cgi.py:194 (finalize_rows, XLA)",
+    # no Pallas kernel: the JAX event build is XLA code (build_events)
+    "events": "fastani_tpu/models/l2walk.py:104 (build_events, XLA)",
+    "events_scan": "fastani_tpu/models/l2walk.py:104 (build_events, XLA)",
 }
 SOURCE = {
     "winnow": "fastani_tpu_torch/csrc/winnow.cu",
@@ -183,10 +192,14 @@ SOURCE = {
     "sort_kv": "fastani_tpu_torch/csrc/sort.cu",
     "walk": "fastani_tpu_torch/csrc/walk.cu",
     "fold": "fastani_tpu_torch/csrc/fold.cu",
+    "events": "fastani_tpu_torch/csrc/events.cu",
+    "events_scan": "fastani_tpu_torch/csrc/events.cu",
 }
 # kernels only the fast path's device CGI launches (the exact path folds
 # on the host, make_sharded_step through cgi_matrices)
 FAST_ONLY = ("fold",)
+# E1 and E2 (csrc/events.cu): the L2 event build, once a chunk as K4
+EVENTS = ("events", "events_scan")
 
 # K1-K3's call sites on the main path: (kernel, calling function, rank of
 # the call's line among that function's calls of the kernel) -> label
@@ -201,12 +214,15 @@ SITES = {
     ("sort", "sketch_fragments", 0): "sketch",
     ("sort", "l1_candidates", 0): "L1 hits",
     ("sort_kv", "build_events", 0): "L2 events",
+    ("events", "build_events", 0): "L2 events",
+    ("events_scan", "build_events", 0): "L2 events",
     ("walk", "l2_walk_units", 0): "L2 walk",
     ("fold", "finalize_rows", 0): "finalize",
 }
 # the site whose numbers stand for the kernel in the kernels table
 TABLE_SITE = {"winnow": "sketch", "compact": "L1 leaders", "sort": "L1 hits",
-              "fold": "finalize"}
+              "fold": "finalize", "events": "L2 events",
+              "events_scan": "L2 events"}
 
 
 T0 = time.time()
@@ -366,6 +382,14 @@ def write_fasta(path, contigs, line_width: int = 70) -> None:
 # phase 4: kernels against their plain versions at the main path's inputs
 # ---------------------------------------------------------------------------
 
+# integer operations of E1 per entry besides its two binary searches (the
+# in-contig test and selects, the clamps, the record and two key packs;
+# each search step a compare and a select), and of E2 per event (the
+# ballots and popcount prefixes, eff, dn, dq, the look-ahead and scored
+# tests, the last leave's shuffle, six stores)
+EVENTS_OPS_PER_ENTRY = 24
+EVENTS_SCAN_OPS_PER_EVENT = 30
+
 # integer operations per event of K5's O(1) design (csrc/walk.cu: the rank
 # select and clamps, the packed-word update and forward, P, cnt, the move
 # test and the score), against 24 bytes read per event
@@ -453,7 +477,9 @@ def wrapper_fns() -> dict:
             "sort": (sort, "sort_rows_u32"),
             "sort_kv": (sort, "sort_rows_u32_kv"),
             "walk": (l2walk, "walk"),
-            "fold": (device_cgi, "fold_rows")}
+            "fold": (device_cgi, "fold_rows"),
+            "events": (l2walk, "events"),
+            "events_scan": (l2walk, "events_scan")}
 
 
 @contextlib.contextmanager
@@ -485,6 +511,18 @@ def map_tensors(torch, fn, x):
     if isinstance(x, dict):
         return {k: map_tensors(torch, fn, v) for k, v in x.items()}
     return x
+
+
+def tensors_of(torch, x) -> list:
+    """The tensors in ``x`` in order (lists, tuples and dicts walked; a
+    dict's by its sorted keys)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        x = [x[k] for k in sorted(x)]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in tensors_of(torch, v)]
+    return []
 
 
 def shape_key(torch, x):
@@ -567,26 +605,39 @@ def site_labels(seen: dict) -> dict:
 
 
 def capture_sites(torch, paths):
-    """The inputs K1-K3 and the fold get on the main path: ``run_fast`` on
-    the first three of ``paths`` against all of them, with each kernel's
-    wrapper wrapped.  Returns ({(kernel, site): {"args", "kw", "calls",
-    "per_batch"}}, batches): each call site's first inputs (on the card)
-    and its calls (the index build's, or over all batches; the fold closes
-    query genomes once a batch after the first, and at the end)."""
+    """The inputs K1-K3, the fold, E1 and E2 get on the main path:
+    ``run_fast`` on the first three of ``paths`` against all of them, with
+    each kernel's wrapper wrapped, then the exact path (``pipeline.run``)
+    on the same queries with E1's and E2's wrapped.  Returns ({(kernel,
+    site): {"args", "kw", "calls", "per_batch"}}, batches, {path:
+    (``kernel_sites``' dict, launches)} of E1 and E2 in the fast and the
+    exact run): each call site's first inputs (on the card) and its calls
+    (the index build's, or over all batches; the fold closes query genomes
+    once a batch after the first, and at the end; E1 and E2 once a chunk,
+    as many a batch as its live units fill)."""
     from fastani_tpu_torch.config import Parameters
     from fastani_tpu_torch.models import pipeline
+    from fastani_tpu_torch.ops import cuda as kc
 
     stats = {}
-    with kernel_sites(torch, ("winnow", "compact", "sort", "fold")) as seen:
-        pipeline.run_fast(Parameters(ref_sequences=paths,
-                                     query_sequences=paths[:3]),
-                          device="cuda", log=lambda m: None, stats=stats)
+    params = lambda: Parameters(ref_sequences=paths, query_sequences=paths[:3])
+    kc.reset_launches()
+    with kernel_sites(torch, ("winnow", "compact", "sort", "fold")
+                      + EVENTS) as seen:
+        pipeline.run_fast(params(), device="cuda", log=lambda m: None,
+                          stats=stats)
+    events = {"fast": ({k: v for k, v in seen.items() if k[0] in EVENTS},
+                       {k: kc.LAUNCHES[k] for k in EVENTS})}
+    kc.reset_launches()
+    with kernel_sites(torch, EVENTS) as seen_exact:
+        pipeline.run(params(), device="cuda", log=lambda m: None)
+    events["exact"] = (seen_exact, {k: kc.LAUNCHES[k] for k in EVENTS})
     sites = {}
     for key, v in site_labels(seen).items():
         (args, kw), = map_tensors(torch, lambda x: x.to("cuda"), v["inputs"])
         sites[key] = {"args": args, "kw": kw, "calls": v["calls"],
                       "per_batch": v["fn"] != "flush"}
-    return sites, stats["batches"]
+    return sites, stats["batches"], events
 
 
 def check_sites(torch, path: str, seen: dict, launches: dict) -> dict:
@@ -610,8 +661,8 @@ def check_sites(torch, path: str, seen: dict, launches: dict) -> dict:
             else:
                 plain = getattr(mod, name + "_plain")(*args, **kw)
             got = getattr(mod, name)(*args, **kw)
-            as_list = lambda o: [o] if isinstance(o, torch.Tensor) else list(o)
-            err = max_abs_err(torch, as_list(got), as_list(plain))
+            err = max_abs_err(torch, tensors_of(torch, got),
+                              tensors_of(torch, plain))
             emit({"phase": "kernel_site", "path": path, "name": kernel,
                   "site": label, "shape": shape_key(torch, args),
                   "calls": v["calls"], "launches": v["launches"],
@@ -687,14 +738,18 @@ def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
                longest_bins=int(lengths.max()),
                occupied_share=float(occ.float().mean()), **extra)
 
-    # K1-K3 and the fold on the inputs of their call sites; launches on
-    # mid per site
-    sites, cap_batches = capture_sites(torch, mid_paths)
+    # K1-K3, the fold, E1 and E2 on the inputs of their call sites;
+    # launches on mid per site (E1's and E2's: mid's own, once a chunk)
+    sites, cap_batches, event_runs = capture_sites(torch, mid_paths)
+    for path, (seen, run_launches) in event_runs.items():
+        check_sites(torch, path, seen, run_launches)
     per_kernel = {}
     launches = {}
     for (kernel, site), v in sites.items():
         n = v["calls"]
-        if v["per_batch"]:
+        if kernel in EVENTS:
+            n = mid_launches[kernel]
+        elif v["per_batch"]:
             if n % cap_batches:
                 raise AssertionError(f"{kernel} at {site}: {n} calls in "
                                      f"{cap_batches} batches")
@@ -736,6 +791,44 @@ def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
         elif kernel == "fold":
             rows, ranges = a
             record_fold(site, rows, ranges, launches_mid=n_mid)
+        elif kernel == "events":
+            qh, frag, u_sid, b0, mi_hash = a[0], a[2], a[3], a[5], a[7]
+            ncap = a[13]
+            U, scap, M = u_sid.shape[0], qh.shape[1], mi_hash.shape[0]
+            T = 2 * ncap + 1
+            # the distinct entries of the units' windows and sketch rows,
+            # each read once; the (U, T) keys and records and five
+            # per-unit words written once
+            b0c = b0.clamp(0, M - ncap)
+            entries = int(torch.unique(
+                b0c[:, None] + torch.arange(ncap, device=dev)).numel())
+            n_rows = int(torch.unique(frag).numel())
+            run_k = lambda: l2walk.events(*a, **kw)
+            run_p = lambda: l2walk.events_plain(*a, **kw)
+            record("events", site, [U, T, scap],
+                   tensors_of(torch, run_k()), tensors_of(torch, run_p()),
+                   run_k, run_p,
+                   nbytes=(entries * sum(x.element_size() for x in a[7:12])
+                           + n_rows * (scap + 1) * 8 + U * 29
+                           + 8 * U * T + 17 * U),
+                   nops=U * ncap * (4 * (scap + 1).bit_length()
+                                    + EVENTS_OPS_PER_ENTRY),
+                   launches_mid=n_mid, distinct_entries=entries,
+                   sketch_rows=n_rows)
+        elif kernel == "events_scan":
+            keys = a[0]
+            U, T = keys.shape
+            run_k = lambda: l2walk.events_scan(*a, **kw)
+            run_p = lambda: l2walk.events_scan_plain(*a, **kw)
+            got_k = tensors_of(torch, run_k())
+            # the sorted keys and records read once, 13 bytes a unit; the
+            # six (U, T) rows and n_ev written once
+            record("events_scan", site, [U, T], got_k,
+                   tensors_of(torch, run_p()), run_k, run_p,
+                   nbytes=8 * U * T + 13 * U + 24 * U * T + 4 * U,
+                   nops=U * T * EVENTS_SCAN_OPS_PER_EVENT,
+                   launches_mid=n_mid,
+                   n_ev_mean=float(got_k[-1].float().mean()))
         elif kernel == "compact":
             flags, pays = a[0], a[1]
             width = kw.get("width", a[2] if len(a) > 2 else flags.shape[1])
@@ -1053,6 +1146,7 @@ def run_exact_mid(torch, n_genomes: int):
                if v <= 0 and k not in FAST_ONLY]
     if missing:
         raise AssertionError(f"exact: kernels not launched: {missing}")
+    events_at_k4("exact", launches)
     if stats["fallback_frags"]:
         raise AssertionError(f"exact: {stats['fallback_frags']} fragments "
                              f"fell back")
@@ -1120,6 +1214,16 @@ def no_eager_batches(what: str, stats: dict) -> None:
         raise AssertionError(f"{what}: {stats['eager_batches']} batches ran "
                              f"eagerly with graphs on, {stats['replays']} "
                              f"replayed, {stats['graphs']} graphs")
+
+
+def events_at_k4(what: str, launches: dict) -> None:
+    """E1 and E2 run once a chunk each, as K4 does."""
+    if not launches["events"] == launches["events_scan"] == \
+            launches["sort_kv"] > 0:
+        raise AssertionError(f"{what}: E1, E2 and K4 launched "
+                             f"{launches['events']}, "
+                             f"{launches['events_scan']}, "
+                             f"{launches['sort_kv']} times")
 
 
 # the tensor methods that read a tensor's values to the host
@@ -1458,6 +1562,7 @@ def run_mesh(torch, np, n_genomes: int, golden: pathlib.Path):
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         raise AssertionError(f"mesh: kernels not launched: {missing}")
+    events_at_k4("mesh", launches)
     if not all(same):
         raise AssertionError(f"mesh fast: files differ from phase 3's: {same}")
     # every kernel at the mesh's own call sites and shapes (B_local rows,
@@ -1721,6 +1826,8 @@ KERNEL_FUNCS = {
     "sort_kv": ("sort_rows_kv_kernel",),
     "walk": ("walk_kernel",),
     "fold": ("fold_rows_kernel",),
+    "events": ("events_kernel",),
+    "events_scan": ("events_scan_kernel",),
 }
 
 
@@ -1816,6 +1923,7 @@ def run_profile(torch, n_genomes: int, golden: pathlib.Path) -> dict:
     # each wrapper launch of the traced window is one kernel in the trace,
     # replayed graphs' included: the counts added a replay are what ran
     in_trace = summary["kernel_launches_in_trace"]
+    events_at_k4("profile", launches)
     unnamed = [k for k, n in in_trace.items() if not n]
     if unnamed or in_trace != stats["profile_launches"] or not all(same):
         raise AssertionError(f"profile: kernels not in the trace: {unnamed}; "
@@ -1918,6 +2026,7 @@ def run_sharded_step(torch, golden: pathlib.Path) -> dict:
                if v <= 0 and k not in FAST_ONLY]
     if missing:
         raise AssertionError(f"sharded step: kernels not launched: {missing}")
+    events_at_k4("sharded step", launches)
     return launches, sites
 
 
@@ -1996,6 +2105,7 @@ def run_main_path(torch, np, n_genomes: int, size: int):
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    events_at_k4("main path", launches)
     if stats["fallback_frags"]:
         raise AssertionError(f"{stats['fallback_frags']} fragments fell back")
     if len(lines) != n_pairs or matrix_rows != n_genomes + 1:

@@ -13,13 +13,18 @@ reference entry, which moves m_j by +-1 for all j >= jr (a non-query
 entry whose hash becomes or stops being distinct in the window) or flips
 one query rank's presence.
 
-``build_events`` serializes each unit's events (K4 key-value row sort of
-packed event keys with per-entry records as payload, both int32 words);
-``walk`` runs them (K5, csrc/walk.cu, on CUDA tensors; ``walk_plain`` on
-CPU tensors).  K5 relies on the invariant above: along every stream
-``build_events`` makes, m stays strictly increasing and every presence
-stays 0 or 1, so j* moves by at most one rank per event and the kernel
-does O(1) work per event (``walk_recurrence`` restates its recurrence).
+``build_events`` serializes each unit's events: E1 (``events``) packs each
+entry's event keys and records, K4 sorts each row of keys with the records
+as payload (both int32 words), E2 (``events_scan``) makes one ordered pass
+over the sorted events; ``walk`` runs them (K5).  The three kernels are
+csrc/events.cu, csrc/sort.cu and csrc/walk.cu on CUDA tensors; on CPU
+tensors each wrapper runs its plain version (``events_plain``,
+``events_scan_plain``, ``walk_plain``; ``events_scan_recurrence`` restates
+E2's one-pass design).  K5 relies on the invariant above: along every
+stream ``build_events`` makes, m stays strictly increasing and every
+presence stays 0 or 1, so j* moves by at most one rank per event and the
+kernel does O(1) work per event (``walk_recurrence`` restates its
+recurrence).
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ CLAMP = 1 << 28      # event values clamp here; anything >= is a pad
 NOSCORE = -5         # below the best-tracker init (-1)
 MAX_SCAP = 1023      # the packed event records hold ranks in 10 bits
 MAX_NCAP = 1022
+# the six (U, T) int32 event rows, in the order K5 takes them
+_EVENTS = ("dn", "dq", "jr", "jm", "scored", "pos")
 
 
 def prev_next_global(mi_hash, mi_sid, order):
@@ -61,7 +68,8 @@ def prev_next_global(mi_hash, mi_sid, order):
 def build_events(qh, s, frag_of_unit, u_sid, u_valid, b0, eL, mi_hash,
                  mi_sid, mi_wpos, prev_g, nxt_g, frag_len: int, k: int,
                  w: int, ncap: int):
-    """The serialized event stream of a chunk of units.
+    """The serialized event stream of a chunk of units: E1 (``events``),
+    K4 (``sort.sort_rows_u32_kv``), E2 (``events_scan``).
 
     b0/eL: each unit's first entry at or after its range start and the end
     of its last window (lower bounds over (seqId, wpos)).  The index arrays
@@ -78,10 +86,70 @@ def build_events(qh, s, frag_of_unit, u_sid, u_valid, b0, eL, mi_hash,
         raise ValueError(f"sketch_cap {qh.shape[-1]} / l2_entry_cap {ncap} "
                          f"exceed the packed event record ({MAX_SCAP}/"
                          f"{MAX_NCAP})")
+    C = frag_len - (w - 1) - (k - 1)   # countMinimizerWindows, computeMap.hpp:428
+    keys0, pay0, s_u, sw0, eL_loc, overflow, lp0 = events(
+        qh, s, frag_of_unit, u_sid, u_valid, b0, eL, mi_hash, mi_sid,
+        mi_wpos, prev_g, nxt_g, C, ncap)
+    keys, rec = sort.sort_rows_u32_kv(keys0, pay0)
+    ev, n_ev = events_scan(keys, rec, sw0, eL_loc, u_valid, lp0, C)
+    return ev, s_u, overflow, n_ev
+
+
+# E1's table arguments and the dtypes the kernel reads them in
+_E1_DTYPES = (("qh", torch.int64), ("s", torch.int64),
+              ("frag_of_unit", torch.int64), ("u_sid", torch.int32),
+              ("u_valid", torch.bool), ("b0", torch.int64),
+              ("eL", torch.int64), ("mi_hash", torch.int64),
+              ("mi_sid", torch.int32), ("mi_wpos", torch.int32),
+              ("prev_g", torch.int64), ("nxt_g", torch.int64))
+
+
+def events(qh, s, frag_of_unit, u_sid, u_valid, b0, eL, mi_hash, mi_sid,
+           mi_wpos, prev_g, nxt_g, C: int, ncap: int):
+    """E1: each unit's event keys and records, the input of K4.  Returns
+    (keys0, pay0, s_u, sw0, eL_loc, overflow, lp0): keys0 and pay0 (U, T)
+    int32 words, T = 2*ncap + 1; s_u, sw0, eL_loc and lp0 (the position of
+    the unit's first entry, PINF outside its contig) (U,) int32; overflow
+    (U,) bool.  csrc/events.cu on CUDA tensors, ``events_plain`` on CPU
+    tensors."""
+    if qh.device.type == "cpu":
+        return events_plain(qh, s, frag_of_unit, u_sid, u_valid, b0, eL,
+                            mi_hash, mi_sid, mi_wpos, prev_g, nxt_g, C, ncap)
+    args = (qh, s, frag_of_unit, u_sid, u_valid, b0, eL, mi_hash, mi_sid,
+            mi_wpos, prev_g, nxt_g)
+    for (name, dt), a in zip(_E1_DTYPES, args):
+        if a.dtype != dt:
+            raise ValueError(f"events: {name} must be {dt}, got {a.dtype}")
+    args = [a.contiguous() for a in args]
+    cuda.require_cuda("events", *args)
+    U, scap, M = u_sid.shape[0], qh.shape[-1], mi_hash.shape[0]
+    if not 1 <= scap <= MAX_SCAP or not 1 <= ncap <= min(MAX_NCAP, M):
+        raise ValueError(f"events: sketch width {scap}, ncap {ncap} over "
+                         f"{M} entries")
+    dev = qh.device
+    T = 2 * ncap + 1
+    keys0 = torch.empty((U, T), dtype=torch.int32, device=dev)
+    pay0 = torch.empty((U, T), dtype=torch.int32, device=dev)
+    per_unit = torch.empty((4, U), dtype=torch.int32, device=dev)
+    overflow = torch.empty(U, dtype=torch.bool, device=dev)
+    if U:
+        err = cuda.lib("events").fa_events(
+            *[a.data_ptr() for a in args], U, M, scap, ncap, C,
+            keys0.data_ptr(), pay0.data_ptr(),
+            *[row.data_ptr() for row in per_unit[:3]], overflow.data_ptr(),
+            per_unit[3].data_ptr(), cuda.stream())
+        cuda.check(err, "events")
+        cuda.LAUNCHES["events"] += 1
+    s_u, sw0, eL_loc, lp0 = per_unit
+    return keys0, pay0, s_u, sw0, eL_loc, overflow, lp0
+
+
+def events_plain(qh, s, frag_of_unit, u_sid, u_valid, b0, eL, mi_hash,
+                 mi_sid, mi_wpos, prev_g, nxt_g, C: int, ncap: int):
+    """Plain PyTorch version of E1 (what ``build_events`` ran before K4)."""
     U = u_sid.shape[0]
     M = mi_hash.shape[0]
     dev = qh.device
-    C = frag_len - (w - 1) - (k - 1)   # countMinimizerWindows, computeMap.hpp:428
     sid = torch.where(u_valid, u_sid.to(torch.int64), 0)
     b0 = b0.clamp(0, M - ncap)
     offs = torch.arange(ncap, device=dev)
@@ -127,7 +195,42 @@ def build_events(qh, s, frag_of_unit, u_sid, u_valid, b0, eL, mi_hash,
     pay0 = u32_as_i32(torch.cat(
         [rec_en, rec_lv, torch.zeros((U, 1), dtype=torch.int64, device=dev)],
         1))
-    keys, rec = sort.sort_rows_u32_kv(keys0, pay0)
+    i32 = lambda x: x.to(torch.int32)
+    return (keys0, pay0, i32(s_u), i32(sw0), i32(eL_loc), overflow,
+            i32(lp[:, 0]))
+
+
+def events_scan(keys, rec, sw0, eL_loc, u_valid, lp0, C: int):
+    """E2: one ordered pass over each unit's sorted events (K4's output).
+    Returns (ev, n_ev): ev the dict of the six (U, T) int32 rows K5 walks,
+    n_ev (U,) int32.  csrc/events.cu on CUDA tensors,
+    ``events_scan_plain`` on CPU tensors."""
+    if keys.device.type == "cpu":
+        return events_scan_plain(keys, rec, sw0, eL_loc, u_valid, lp0, C)
+    args = (keys, rec, sw0, eL_loc, u_valid, lp0)
+    want = (torch.int32,) * 4 + (torch.bool, torch.int32)
+    if any(a.dtype != dt for a, dt in zip(args, want)):
+        raise ValueError("events_scan: keys, rec, sw0, eL_loc and lp0 must "
+                         "be int32 and u_valid bool")
+    args = [a.contiguous() for a in args]
+    cuda.require_cuda("events_scan", *args)
+    U, T = keys.shape
+    # one allocation a row keeps each 16-byte aligned for K5's staging
+    ev = {name: torch.empty((U, T), dtype=torch.int32, device=keys.device)
+          for name in _EVENTS}
+    n_ev = torch.empty(U, dtype=torch.int32, device=keys.device)
+    if U:
+        err = cuda.lib("events").fa_events_scan(
+            *[a.data_ptr() for a in args], U, T, C,
+            *[ev[name].data_ptr() for name in _EVENTS], n_ev.data_ptr(),
+            cuda.stream())
+        cuda.check(err, "events_scan")
+        cuda.LAUNCHES["events_scan"] += 1
+    return ev, n_ev
+
+
+def events_scan_plain(keys, rec, sw0, eL_loc, u_valid, lp0, C: int):
+    """Plain PyTorch version of E2 (what ``build_events`` ran after K4)."""
     vt = keys >> 2
     code = keys & 3
     real = vt < CLAMP
@@ -150,15 +253,54 @@ def build_events(qh, s, frag_of_unit, u_sid, u_valid, b0, eL, mi_hash,
               & (le_t < eL_loc[:, None]) & u_valid[:, None])
     # position at the event: lp of the most recent leave (lp[0] before any)
     prop, _ = last_event_value(is_leave, torch.where(is_leave, vt - C, 0), 0)
-    poslb = torch.where(lb_t > 0, prop, lp[:, :1])
+    poslb = torch.where(lb_t > 0, prop, lp0[:, None])
     n_ev = real.sum(dim=-1)
     i32 = lambda x: x.to(torch.int32)
     ev = dict(dn=i32(dn), dq=i32(dq), jr=i32((rec >> 10) & 0x3FF),
               jm=i32(rec & 0x3FF), scored=i32(scored), pos=i32(poslb))
-    return ev, i32(s_u), overflow, i32(n_ev)
+    return ev, i32(n_ev)
 
 
-_EVENTS = ("dn", "dq", "jr", "jm", "scored", "pos")
+def events_scan_recurrence(keys, rec, sw0, eL_loc, u_valid, lp0, C: int):
+    """E2's one ordered pass (csrc/events.cu) restated in plain PyTorch
+    over units, for the tests: running leave and enter counts, a one-event
+    look-ahead for the end of an equal-value run, and the position of the
+    last leave carried from event to event (lp[0] before any), in place of
+    the cumsums and the forward fill of ``events_scan_plain``.  Returns
+    (ev, n_ev) as ``events_scan``."""
+    U, T = keys.shape
+    ev = {name: torch.zeros((U, T), dtype=torch.int32, device=keys.device)
+          for name in _EVENTS}
+    lb = torch.zeros(U, dtype=torch.int32, device=keys.device)
+    le = torch.zeros_like(lb)
+    n_ev = torch.zeros_like(lb)
+    last = lp0.to(torch.int32).clone()
+    thr = sw0 + C
+    for t in range(T):
+        key, r = keys[:, t], rec[:, t]
+        vt, code = key >> 2, key & 3
+        real = vt < CLAMP
+        enter = (code == 0) & real
+        leave = (code == 1) & real
+        lb += leave.int()
+        le += enter.int()
+        n_ev += real.int()
+        pvnx = (r >> 22) & 0x3FF
+        eff = torch.where(enter, (pvnx - 1) < lb, pvnx >= le)
+        sign = enter.int() * 2 - 1
+        change = (enter | leave) & eff
+        run_end = (vt != (keys[:, t + 1] >> 2) if t + 1 < T
+                   else torch.ones_like(real))
+        last = torch.where(leave, vt - C, last)
+        ev["dn"][:, t] = sign * (change & (((r >> 21) & 1) != 0)).int()
+        ev["dq"][:, t] = sign * (change & (((r >> 20) & 1) != 0)).int()
+        ev["jr"][:, t] = (r >> 10) & 0x3FF
+        ev["jm"][:, t] = r & 0x3FF
+        ev["scored"][:, t] = (run_end & real & (vt >= thr) & (le < eL_loc)
+                              & u_valid).int()
+        ev["pos"][:, t] = last
+    return ev, n_ev
+
 
 
 def walk(ev: dict, s_u: torch.Tensor, n_ev: torch.Tensor, scap: int):

@@ -36,15 +36,18 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parent.parent / "_build"
 
-# kernel name -> source file (K3 and K4 share sort.cu)
+# library name -> source file (K3 and K4 share sort.cu, E1 and E2
+# events.cu)
 SOURCES = {
     "winnow": "winnow.cu",
     "compact": "compact.cu",
     "sort": "sort.cu",
+    "events": "events.cu",
     "walk": "walk.cu",
     "fold": "fold.cu",
 }
-KERNELS = ("winnow", "compact", "sort", "sort_kv", "walk", "fold")
+KERNELS = ("winnow", "compact", "sort", "sort_kv", "events", "events_scan",
+           "walk", "fold")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -62,6 +65,9 @@ _SIGNATURES = {
                                     _P, _P, _P]},
     "sort": {"fa_sort_rows_u32": [_P, _P, _I, _I, _P],
              "fa_sort_rows_u32_kv": [_P, _P, _P, _P, _I, _I, _P]},
+    "events": {"fa_events": [_P] * 12 + [_I, ctypes.c_longlong, _I, _I, _I]
+               + [_P] * 8,
+               "fa_events_scan": [_P] * 6 + [_I, _I, _I] + [_P] * 8},
     "walk": {"fa_walk": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _P, _P, _P, _P]},
     "fold": {"fa_fold_rows": [_P, _P, _P, _I, _I, _I, _P, _P, _P]},

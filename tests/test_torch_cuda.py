@@ -1,10 +1,11 @@
-"""Card-only parity tests of the port's CUDA kernels (K1-K5 and the fold)
-against their plain PyTorch versions, of the map step's CUDA graphs
-against the eager step, and of the fast and exact paths (single-device and
-on a 2x2 mesh) and index persistence on the card against the same runs on
-the CPU.  Each test asks for the ``cuda_device`` fixture, which
-skips when no NVIDIA GPU is present; run them on the card (where JAX, which
-tests/conftest.py imports, need not be installed) with
+"""Card-only parity tests of the port's CUDA kernels (K1-K5, the L2 event
+build's E1 and E2, and the fold) against their plain PyTorch versions, of
+the map step's CUDA graphs against the eager step, and of the fast and
+exact paths (single-device and on a 2x2 mesh) and index persistence on
+the card against the same runs on the CPU.  Each test asks for the
+``cuda_device`` fixture (or ``event_world``, which skips alike), which
+skips when no NVIDIA GPU is present; run them on the card (where JAX,
+which tests/conftest.py imports, need not be installed) with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -217,6 +218,124 @@ def test_walk_kernel_matches_plain(cuda_device, tmp_path, scap, frag_len,
     _eq(got, l2walk.walk_plain(ev, s_u, n_ev, scap))
     _eq(got, l2walk.walk_recurrence(ev, s_u, n_ev, scap))
     assert int((got[0] > 0).sum()) > 10
+
+
+@pytest.fixture(scope="module")
+def event_world(tmp_path_factory):
+    """An index on the card of two diverged 400 kbp references (one with
+    40 near-identical tandem copies of a 700 bp unit) at mid's caps
+    (sketch 320, l2_entry_cap 1016), and the located units of one batch of
+    query fragments."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    wd = tmp_path_factory.mktemp("events")
+    rng = np.random.default_rng(12)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    base = acgt[rng.integers(0, 4, 400_000)]
+    unit = acgt[rng.integers(0, 4, 700)]
+    tandem = np.concatenate([_mutate(rng, unit, 0.01) for _ in range(40)])
+    _write_fasta(wd / "r0.fa", [("r0", _mutate(rng, base, 0.01)),
+                                ("rep", tandem)])
+    _write_fasta(wd / "r1.fa", [("r1", _mutate(rng, base, 0.03))])
+    params = Parameters(ref_sequences=[str(wd / "r0.fa"), str(wd / "r1.fa")],
+                        sketch_cap=320, l2_entry_cap=1016).finalize()
+    mapper = jitmap.Mapper(params, ReferenceIndex.build_device(params,
+                                                               device=dev),
+                           unit_factor=8)
+    q = np.concatenate([_mutate(rng, tandem, 0.01), _mutate(rng, base, 0.02)])
+    F = len(q) // 3000
+    frags = torch.as_tensor(q[: F * 3000].reshape(F, 3000), device=dev)
+    cfg, t = mapper.cfg, mapper.tables
+    return cfg, t, jitmap.locate_units(cfg, frags, t)
+
+
+def _event_case(world, case):
+    """build_events' arguments on the card: every valid unit of the batch
+    (at most 512, every fifth masked) for "real", else 12 units with units
+    1-4 made into the edge case, or 5 units at sketch width 1023 and ncap
+    1022 ("wide")."""
+    cfg, t, u = world
+    n = min(int(u["n_live"]), 512) if case == "real" else 12
+    args = list(jitmap.l2_chunk_args(cfg, t, u, slice(0, n)))
+    u_sid, u_valid, b0, eL = (args[i].clone() for i in (3, 4, 5, 6))
+    M, ncap = t.mi_hash.shape[0], args[15]
+    dev = b0.device
+    if case == "real":
+        u_valid[::5] = False
+    elif case == "invalid":
+        u_valid[1:5] = False
+    elif case == "past_contig":
+        last = int((t.mi_sid == 0).nonzero().max())
+        b0[1:5] = torch.tensor([10, 100, 250, 400], device=dev).neg() + last
+        u_sid[1:5] = 0
+        eL[1:5] = b0[1:5] + ncap // 2
+    elif case == "clamped":
+        b0[1:5] = torch.tensor([M - 1, M - ncap + 3, -7, -1], device=dev)
+    elif case == "overflow":
+        eL[1:5] = b0[1:5] + ncap + torch.tensor([1, 7, 300, 5000], device=dev)
+    elif case == "wide":
+        u_sid, u_valid, b0, eL = u_sid[:5], u_valid[:5], b0[:5], eL[:5]
+        args[2] = args[2][:5]
+        qh = args[0]
+        args[0] = torch.cat([qh, torch.full((qh.shape[0], 1023 - qh.shape[1]),
+                                            0xFFFFFFFF, dtype=qh.dtype,
+                                            device=dev)], dim=1)
+        args[15] = 1022
+    args[3:7] = [u_sid, u_valid, b0, eL]
+    return tuple(args)
+
+
+@pytest.mark.parametrize("case", ["real", "invalid", "past_contig", "clamped",
+                                  "overflow", "wide"])
+def test_event_kernels_match_plain(event_world, case):
+    """E1 and E2 (csrc/events.cu) bit-equal to events_plain and
+    events_scan_plain on the same inputs, on real units and on the edge
+    units of tests/test_torch_events.py; build_events on the card runs
+    E1 -> K4 -> E2, one launch each and no torch cumsum, cummax or
+    searchsorted, and equals build_events on the CPU."""
+    from torch.overrides import TorchFunctionMode
+
+    from fastani_tpu_torch.ops import cuda
+
+    args = _event_case(event_world, case)
+    frag_len, k, w, ncap = args[12:]
+    C = frag_len - (w - 1) - (k - 1)
+    e1_in = args[:12] + (C, ncap)
+    got = l2walk.events(*e1_in)
+    want = l2walk.events_plain(*e1_in)
+    assert [x.dtype for x in got] == [x.dtype for x in want]
+    _eq(got, want)
+    keys, rec = sort.sort_rows_u32_kv(got[0], got[1])
+    scan_in = (keys, rec, got[3], got[4], args[4], got[6], C)
+    ev, n_ev = l2walk.events_scan(*scan_in)
+    ev_p, n_ev_p = l2walk.events_scan_plain(*scan_in)
+    _eq([ev[n] for n in l2walk._EVENTS] + [n_ev],
+        [ev_p[n] for n in l2walk._EVENTS] + [n_ev_p])
+
+    class Calls(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            self.names.append(getattr(func, "__name__", str(func)))
+            return func(*args, **(kwargs or {}))
+
+    cuda.reset_launches()
+    with Calls() as calls:
+        card = l2walk.build_events(*args)
+    torch.cuda.synchronize()
+    assert {n: cuda.LAUNCHES[n] for n in ("events", "sort_kv",
+                                           "events_scan")} == \
+        {"events": 1, "sort_kv": 1, "events_scan": 1}
+    assert not {"cumsum", "cummax", "searchsorted"} & set(calls.names)
+    host = l2walk.build_events(*[a.cpu() if isinstance(a, torch.Tensor)
+                                 else a for a in args])
+    _eq([card[0][n] for n in l2walk._EVENTS] + list(card[1:]),
+        [host[0][n] for n in l2walk._EVENTS] + list(host[1:]))
+    if case == "real":
+        assert int((card[0]["scored"].sum(dim=1) > 0).sum()) > 20
 
 
 def _run_fast_card_and_cpu(tmp_path, **caps):
