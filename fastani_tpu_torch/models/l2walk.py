@@ -20,11 +20,11 @@ over the sorted events; ``walk`` runs them (K5).  The three kernels are
 csrc/events.cu, csrc/sort.cu and csrc/walk.cu on CUDA tensors; on CPU
 tensors each wrapper runs its plain version (``events_plain``,
 ``events_scan_plain``, ``walk_plain``; ``events_scan_recurrence`` restates
-E2's one-pass design).  K5 relies on the invariant above: along every
-stream ``build_events`` makes, m stays strictly increasing and every
-presence stays 0 or 1, so j* moves by at most one rank per event and the
-kernel does O(1) work per event (``walk_recurrence`` restates its
-recurrence).
+E2's pass event by event, ``events_scan_segmented`` its two-level
+scan).  K5 relies on the invariant above: along every stream
+``build_events`` makes, m stays strictly increasing and every presence
+stays 0 or 1, so j* moves by at most one rank per event and the kernel
+does O(1) work per event (``walk_recurrence`` restates its recurrence).
 """
 
 from __future__ import annotations
@@ -33,7 +33,8 @@ import torch
 
 from fastani_tpu_torch.ops import cuda, sort
 from fastani_tpu_torch.ops.xputils import (PINF, UMAX, last_event_value,
-                                           shift_right, u32_as_i32)
+                                           shift_left, shift_right,
+                                           u32_as_i32)
 
 CLAMP = 1 << 28      # event values clamp here; anything >= is a pad
 NOSCORE = -5         # below the best-tracker init (-1)
@@ -111,7 +112,13 @@ def events(qh, s, frag_of_unit, u_sid, u_valid, b0, eL, mi_hash, mi_sid,
     int32 words, T = 2*ncap + 1; s_u, sw0, eL_loc and lp0 (the position of
     the unit's first entry, PINF outside its contig) (U,) int32; overflow
     (U,) bool.  csrc/events.cu on CUDA tensors, ``events_plain`` on CPU
-    tensors."""
+    tensors.
+
+    Each row of ``qh`` must be unique and strictly ascending before its
+    UMAX pads, as ``mapping.sketch_fragments`` makes it: the kernel finds
+    jr = #{q <= h} as ql + (q[ql] == h) from its one search, where
+    ``events_plain`` searches again, so a row with a repeated hash would
+    give other records on the card than on the CPU, unreported."""
     if qh.device.type == "cpu":
         return events_plain(qh, s, frag_of_unit, u_sid, u_valid, b0, eL,
                             mi_hash, mi_sid, mi_wpos, prev_g, nxt_g, C, ncap)
@@ -201,7 +208,7 @@ def events_plain(qh, s, frag_of_unit, u_sid, u_valid, b0, eL, mi_hash,
 
 
 def events_scan(keys, rec, sw0, eL_loc, u_valid, lp0, C: int):
-    """E2: one ordered pass over each unit's sorted events (K4's output).
+    """E2: the ordered pass over each unit's sorted events (K4's output).
     Returns (ev, n_ev): ev the dict of the six (U, T) int32 rows K5 walks,
     n_ev (U,) int32.  csrc/events.cu on CUDA tensors,
     ``events_scan_plain`` on CPU tensors."""
@@ -215,6 +222,9 @@ def events_scan(keys, rec, sw0, eL_loc, u_valid, lp0, C: int):
     args = [a.contiguous() for a in args]
     cuda.require_cuda("events_scan", *args)
     U, T = keys.shape
+    if not 1 <= T <= 2 * MAX_NCAP + 1:
+        raise ValueError(f"events_scan: {T} events a unit, at most "
+                         f"{2 * MAX_NCAP + 1}")
     # one allocation a row keeps each 16-byte aligned for K5's staging
     ev = {name: torch.empty((U, T), dtype=torch.int32, device=keys.device)
           for name in _EVENTS}
@@ -262,8 +272,8 @@ def events_scan_plain(keys, rec, sw0, eL_loc, u_valid, lp0, C: int):
 
 
 def events_scan_recurrence(keys, rec, sw0, eL_loc, u_valid, lp0, C: int):
-    """E2's one ordered pass (csrc/events.cu) restated in plain PyTorch
-    over units, for the tests: running leave and enter counts, a one-event
+    """E2's ordered pass restated event by event in plain PyTorch over
+    units, for the tests: running leave and enter counts, a one-event
     look-ahead for the end of an equal-value run, and the position of the
     last leave carried from event to event (lp[0] before any), in place of
     the cumsums and the forward fill of ``events_scan_plain``.  Returns
@@ -301,6 +311,70 @@ def events_scan_recurrence(keys, rec, sw0, eL_loc, u_valid, lp0, C: int):
         ev["pos"][:, t] = last
     return ev, n_ev
 
+
+def events_scan_segmented(keys, rec, sw0, eL_loc, u_valid, lp0, C: int,
+                          W: int):
+    """E2's two-level scan (csrc/events.cu, ``W`` warps a unit) restated
+    in plain PyTorch, for the tests.  Each unit's T events are cut into W
+    segments of 32 * ceil(ceil(T / 32) / W) (the last ones may be empty);
+    each segment is reduced to its leave, enter and real counts and its
+    last leave; the tuples are scanned exclusively (the last leave: the
+    last earlier segment's that has one, else lp[0]); then each segment
+    is passed again from its carry, its look-ahead at its last event
+    reading the next segment's first key.  Returns (ev, n_ev) as
+    ``events_scan``."""
+    U, T = keys.shape
+    dev = keys.device
+    S = 32 * -(-(-(-T // 32)) // W)
+    pad = torch.full((U, W * S - T), CLAMP << 2, dtype=keys.dtype,
+                     device=dev)
+    k = torch.cat([keys, pad], 1).view(U, W, S)
+    r = torch.cat([rec, torch.zeros_like(pad)], 1).view(U, W, S)
+    vt = (k >> 2).long()
+    real = vt < CLAMP
+    enter = ((k & 3) == 0) & real
+    leave = ((k & 3) == 1) & real
+    lv = vt - C
+    at = torch.arange(S, device=dev)
+    seg = torch.arange(W, device=dev)
+
+    def last_of(flags, axis_idx, values, dim):
+        # the value at the last flagged index along ``dim`` (-1: none)
+        i = torch.where(flags, axis_idx, -1).cummax(dim).values
+        return i, torch.gather(values, dim, i.clamp(min=0))
+
+    # 1. each segment's tuple; i_in, lv_in: the last leave at or before
+    # each event within its segment
+    n_l, n_e = leave.sum(-1), enter.sum(-1)
+    i_in, lv_in = last_of(leave, at, lv, 2)
+    has, seg_last = i_in[..., -1] >= 0, lv_in[..., -1]
+    # 2. the carry into each segment, from the earlier ones
+    lb0 = torch.cumsum(n_l, 1) - n_l
+    le0 = torch.cumsum(n_e, 1) - n_e
+    j_last, prior = last_of(has, seg, seg_last, 1)
+    j_last = shift_right(j_last, 1, -1)
+    carry = torch.where(j_last >= 0, shift_right(prior, 1, 0),
+                        lp0.long()[:, None])
+    # 3. each segment from its carry
+    lb_t = lb0[..., None] + torch.cumsum(leave, -1)
+    le_t = le0[..., None] + torch.cumsum(enter, -1)
+    pos = torch.where(i_in >= 0, lv_in, carry[..., None])
+    first = shift_left(vt[..., 0], 1, CLAMP)      # the next segment's
+    nvt = torch.cat([vt[..., 1:], first[..., None]], 2)
+    t = (seg[:, None] * S + at[None, :])[None]
+    run_end = (t + 1 >= T) | (vt != nvt)
+    pvnx = (r >> 22) & 0x3FF
+    eff = torch.where(enter, (pvnx - 1) < lb_t, pvnx >= le_t)
+    sign = torch.where(enter, 1, -1)
+    change = (enter | leave) & eff
+    scored = (run_end & real & (vt >= (sw0 + C).long()[:, None, None])
+              & (le_t < eL_loc[:, None, None]) & u_valid[:, None, None])
+    rows = dict(dn=torch.where(change & (((r >> 21) & 1) != 0), sign, 0),
+                dq=torch.where(change & (((r >> 20) & 1) != 0), sign, 0),
+                jr=(r >> 10) & 0x3FF, jm=r & 0x3FF, scored=scored, pos=pos)
+    ev = {name: rows[name].reshape(U, W * S)[:, :T].to(torch.int32)
+          for name in _EVENTS}
+    return ev, real.sum((1, 2)).to(torch.int32)
 
 
 def walk(ev: dict, s_u: torch.Tensor, n_ev: torch.Tensor, scap: int):

@@ -5,21 +5,24 @@ one process on one card.
     python3 scripts/torch_kernel_versions.py KERNEL OTHER_CU [OTHER_CU ...]
 
 KERNEL is ``walk`` (K5), ``sort_kv`` (K4), ``sort`` (K3), ``compact``
-(K2) or ``winnow`` (K1); each OTHER_CU is a source with the same C entry
-points as ``fastani_tpu_torch/csrc/`` has for it (for ``winnow`` also the
+(K2), ``winnow`` (K1), ``events`` (E1) or ``events_scan`` (E2); each
+OTHER_CU is a source with the same C entry points as
+``fastani_tpu_torch/csrc/`` has for it (for ``winnow`` also the
 ``fa_winnow_rows`` entry point of the row-per-block K1, whose int64 hashes
 are compared as int32 words), built with the flags of ``ops/cuda.py`` into
 ``.smokework/``.  The inputs: for ``walk``, ``chip_smoke.real_streams`` (U
 512 and 4096, scap 320); for ``sort_kv``, ``chip_smoke.kv_inputs``; for
-``sort``, ``compact`` and ``winnow``, what each of the kernel's call sites
-gets on the main path (``chip_smoke.capture_sites`` on bench.py's mid
-genomes).  Every version is compared with the plain version and timed
-against this one in turns (other, this, this, other; CUDA events around a
-CUDA graph of 20 calls, after a warm-up); ``winnow`` also times this
-source at the tile widths of ``WINNOW_TILES``.  Prints one JSON line with
-the card's name and power limit, each version's max abs error and times;
-exits 1 if another version differs from the plain version (raises at once
-if this one does).  Needs a CUDA device.
+``sort``, ``compact``, ``winnow``, ``events`` and ``events_scan``, what
+each of the kernel's call sites gets on the main path
+(``chip_smoke.capture_sites`` on bench.py's mid genomes), and for the
+last two also what ``build_events`` gives them at U 4096 inside
+``chip_smoke.real_streams``.  Every version is compared with the plain
+version and timed against this one in turns (other, this, this, other;
+CUDA events around a CUDA graph of 20 calls, after a warm-up); ``winnow``
+also times this source at the tile widths of ``WINNOW_TILES``.  Prints
+one JSON line with the card's name and power limit, each version's max
+abs error and times; exits 1 if another version differs from the plain
+version (raises at once if this one does).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -99,14 +102,16 @@ def cases(torch, np, kernel, chip_smoke):
     wd.mkdir(parents=True, exist_ok=True)
     paths = chip_smoke.build_workload(np, wd, chip_smoke.N_GENOMES,
                                       chip_smoke.GENOME_BP)
-    sites, _ = chip_smoke.capture_sites(torch, paths)
+    sites = chip_smoke.capture_sites(torch, paths)[0]
     shutil.rmtree(wd, ignore_errors=True)
     out = []
     for (k, site), v in sorted(sites.items()):
         if k != kernel:
             continue
         a, kw = v["args"], v["kw"]
-        if kernel == "winnow":
+        if kernel in chip_smoke.EVENTS:
+            out.append(event_case(torch, chip_smoke, kernel, site, (a, kw)))
+        elif kernel == "winnow":
             run, as_words = winnow_run(torch, a)
             out.append((f"{site} {list(a[0].shape)}", run,
                         winnow.winnow_rows_plain(*a), as_words, a))
@@ -123,7 +128,31 @@ def cases(torch, np, kernel, chip_smoke):
                         compact.compact_rows(f, p, w),
                         compact.compact_rows_plain(flags, pays, width),
                         list))
+    if kernel in chip_smoke.EVENTS:
+        # E1's and E2's inputs at U 4096: build_events on real_streams'
+        # first 4096 units
+        with chip_smoke.kernel_sites(torch, chip_smoke.EVENTS) as seen:
+            chip_smoke.real_streams(torch, np, torch.device("cuda"),
+                                    sizes=(4096,))
+        out += [event_case(torch, chip_smoke, kernel, f"U 4096 {label}",
+                           v["inputs"][0])
+                for (k, label), v in chip_smoke.site_labels(seen).items()
+                if k == kernel]
     return out
+
+
+def event_case(torch, chip_smoke, kernel, label, inputs):
+    """A ``cases`` entry of E1 or E2 on one call's (args, kw)."""
+    from fastani_tpu_torch.models import l2walk
+
+    (a, kw), = chip_smoke.map_tensors(torch, lambda x: x.to("cuda"),
+                                      [inputs])
+    fn, plain = getattr(l2walk, kernel), getattr(l2walk, kernel + "_plain")
+    words = lambda out: chip_smoke.tensors_of(torch, out)
+    want = words(plain(*a, **kw))
+    shape = list(want[0].shape) + ([a[0].shape[1]] if kernel == "events"
+                                   else [])           # (U, T[, scap])
+    return f"{label} {shape}", lambda: fn(*a, **kw), want, words
 
 
 def main(argv) -> int:
@@ -131,14 +160,16 @@ def main(argv) -> int:
     import torch
 
     if len(argv) < 3 or argv[1] not in ("walk", "sort_kv", "sort",
-                                          "compact", "winnow"):
+                                          "compact", "winnow", "events",
+                                          "events_scan"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("torch_kernel_versions: no CUDA device", file=sys.stderr)
         return 2
     kernel = argv[1]
-    source = "sort" if kernel == "sort_kv" else kernel     # K3, K4: sort.cu
+    # K3 and K4 share sort.cu, E1 and E2 events.cu
+    source = {"sort_kv": "sort", "events_scan": "events"}.get(kernel, kernel)
     others = [pathlib.Path(a).resolve() for a in argv[2:]]
     sys.path.insert(0, str(ROOT))
     import chip_smoke

@@ -338,6 +338,47 @@ def test_event_kernels_match_plain(event_world, case):
         assert int((card[0]["scored"].sum(dim=1) > 0).sum()) > 20
 
 
+@pytest.mark.parametrize("ncap", [1, 2, 128, 1016, 1022])
+@pytest.mark.parametrize("U", [1, 3, 512, 4096])
+def test_event_kernels_at_edge_shapes(event_world, U, ncap):
+    """E1 and E2 bit-equal to their plain versions at U units (the batch's
+    live units repeated) and ncap entries a unit (T = 2 ncap + 1, up to
+    2045: one to all of E2's 16 warps hold events), E1 at sketch widths
+    1, 320 and 1023 (the row cut to its first word, as it is, and padded
+    with UMAX); and build_events on the card equal to the CPU."""
+    cfg, t, u = event_world
+    n = int(u["n_live"])
+    args = list(jitmap.l2_chunk_args(cfg, t, u, slice(0, n)))
+    pick = torch.arange(U, device=args[2].device) % n
+    args[2:7] = [a[pick] for a in args[2:7]]
+    args[4][::5] = False
+    args[15] = ncap
+    frag_len, k, w = args[12:15]
+    C = frag_len - (w - 1) - (k - 1)
+    qh = args[0]
+    widths = {1: qh[:, :1].contiguous(), 320: qh,
+              1023: torch.cat([qh, torch.full((qh.shape[0], 1023 - 320),
+                                              0xFFFFFFFF, dtype=qh.dtype,
+                                              device=qh.device)], dim=1)}
+    assert qh.shape[1] == 320
+    for scap, q in widths.items():
+        e1_in = (q, *args[1:12], C, ncap)
+        got = l2walk.events(*e1_in)
+        _eq(got, l2walk.events_plain(*e1_in))
+        assert got[0].shape == (U, 2 * ncap + 1), scap
+        keys, rec = sort.sort_rows_u32_kv(got[0], got[1])
+        scan_in = (keys, rec, got[3], got[4], args[4], got[6], C)
+        ev, n_ev = l2walk.events_scan(*scan_in)
+        ev_p, n_ev_p = l2walk.events_scan_plain(*scan_in)
+        _eq([ev[x] for x in l2walk._EVENTS] + [n_ev],
+            [ev_p[x] for x in l2walk._EVENTS] + [n_ev_p])
+    card = l2walk.build_events(*args)
+    host = l2walk.build_events(*[a.cpu() if isinstance(a, torch.Tensor)
+                                 else a for a in args])
+    _eq([card[0][x] for x in l2walk._EVENTS] + list(card[1:]),
+        [host[0][x] for x in l2walk._EVENTS] + list(host[1:]))
+
+
 def _run_fast_card_and_cpu(tmp_path, **caps):
     rng = np.random.default_rng(9)
     acgt = np.frombuffer(b"ACGT", np.uint8)

@@ -13,7 +13,14 @@
     ``events_scan_plain``;
 (d) edge units: an invalid unit, a window running past its contig's end,
     b0 clamped at 0 and at M - ncap, eL - b0 > ncap (overflow), and a few
-    units at the record's limits, sketch width 1023 and ncap 1022.
+    units at the record's limits, sketch width 1023 and ncap 1022;
+(e) ``events_scan_segmented`` (E2's two-level scan, W warps a unit)
+    equals ``events_scan_plain`` at W in {1, 2, 7, 16, 64} on the real
+    chunk, the edge units and made-up units that hold each segment edge
+    case;
+(f) E1's one rank search: every sketch row is strictly increasing before
+    its UMAX pads, and jr = ql + (q[ql] == h) (scap for h = UMAX) equals
+    #{q <= h} on every entry of the real chunk.
 """
 
 import jax.numpy as jnp
@@ -308,3 +315,147 @@ def test_edge_units(world, case):
         assert bool(overflow[1:5].all())
     else:
         assert got[0]["dn"].shape == (5, 2 * 1022 + 1)
+
+
+# (e): E2's two-level scan
+
+def _segment_len(T, W):
+    """The events of one of E2's W segments (csrc/events.cu)."""
+    return 32 * -(-(-(-T // 32)) // W)
+
+
+def _segment_facts(scan_in, W):
+    """Which of the segment edge cases E2's inputs hold at W warps a unit:
+    a segment with no leave whose carry comes from an earlier segment's
+    leave, or from lp0 (no leave before it); a leave at a segment's last
+    event; an equal-value run across a segment edge (both events real);
+    T < 32 W; an all-pad unit; an invalid unit."""
+    keys, u_valid = scan_in[0], scan_in[4]
+    U, T = keys.shape
+    S = _segment_len(T, W)
+    pad = torch.full((U, W * S - T), l2walk.CLAMP << 2, dtype=keys.dtype)
+    k = torch.cat([keys, pad], 1).view(U, W, S)
+    vt = k >> 2
+    real = vt < l2walk.CLAMP
+    leave = ((k & 3) == 1) & real
+    n_seg = -(-T // S)                       # segments holding events
+    has = leave[:, :n_seg].any(-1)
+    before = (torch.cumsum(has.int(), 1) - has.int()) > 0
+    facts = set()
+    if n_seg > 1:
+        later = ~has[:, 1:]
+        if bool((later & before[:, 1:]).any()):
+            facts.add("carry from an earlier segment")
+        if bool((later & ~before[:, 1:]).any()):
+            facts.add("carry from lp0")
+        edge = torch.arange(1, n_seg) * S
+        if bool(leave[:, :n_seg - 1, -1].any()):
+            facts.add("leave at a segment's end")
+        flat_vt, flat_real = keys >> 2, (keys >> 2) < l2walk.CLAMP
+        if bool(((flat_vt[:, edge - 1] == flat_vt[:, edge])
+                 & flat_real[:, edge - 1] & flat_real[:, edge]).any()):
+            facts.add("run across a segment edge")
+    if T < 32 * W:
+        facts.add("T < 32 W")
+    if bool((~real.any(-1).any(-1)).any()):
+        facts.add("all-pad unit")
+    if bool((~u_valid).any()):
+        facts.add("invalid unit")
+    return facts
+
+
+def _made_up_scan(T, W, seed):
+    """E2's inputs for 8 made-up units of T events: sorted values with
+    runs, codes and records at random, a few pads at each row's end, then
+    units 1-5 changed so that at W warps each segment edge case holds:
+    leaves only in the first segment (1), none before the third (2), a
+    leave at the first segment's last event (3), a real equal-value run
+    across the first edge (4), all pads (5); units 6 and 7 invalid."""
+    rng = np.random.default_rng(seed)
+    U = 8
+    S = _segment_len(T, W)
+    vals = np.sort(rng.integers(0, T // 3 + 2, (U, T)), axis=1) + 1000
+    code = rng.integers(0, 3, (U, T))
+    n_pad = rng.integers(0, max(2, T // 8), U)
+    for u in range(U):
+        if n_pad[u]:
+            vals[u, -n_pad[u]:] = l2walk.CLAMP
+    at = np.arange(T)
+    code[1] = np.where(at < S, code[1], 2 * rng.integers(0, 2, T))
+    code[2] = np.where(at < 2 * S, 2 * rng.integers(0, 2, T), code[2])
+    vals[3:5, :S + 2] = np.minimum(vals[3:5, :S + 2], l2walk.CLAMP - 1)
+    if S < T:
+        code[3, S - 1] = 1
+        vals[4, S - 2: S + 2] = vals[4, S - 2]
+    vals[5] = l2walk.CLAMP
+    keys = torch.from_numpy((vals << 2 | code).astype(np.int32))
+    rec = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (U, T),
+                                        dtype=np.int64).astype(np.int32))
+    sw0 = torch.from_numpy(rng.integers(0, 50, U).astype(np.int32))
+    eL_loc = torch.from_numpy(rng.integers(0, T // 2 + 1, U)
+                              .astype(np.int32))
+    u_valid = torch.tensor([True] * 6 + [False] * 2)
+    lp0 = torch.from_numpy(rng.integers(0, 10 ** 6, U).astype(np.int32))
+    return keys, rec, sw0, eL_loc, u_valid, lp0, 777
+
+
+@pytest.mark.parametrize("W", [1, 2, 7, 16, 64])
+def test_scan_segmented_equals_plain(chunk, world, W):
+    """(e): on the real chunk (T 1537), the edge units' (the "wide" case:
+    T 2045) and made-up units at T 21 and 2045, the two-level scan equals
+    the plain version bit for bit; every segment edge case occurs at W
+    among these inputs (those that need two segments, at W > 1)."""
+    inputs = [_split(chunk)[1]]
+    inputs += [_split(_edge_args(world, case))[1]
+               for case in ("invalid", "past_contig", "wide")]
+    inputs += [_made_up_scan(T, W, seed=T + W) for T in (21, 2045)]
+    facts = set()
+    for scan_in in inputs:
+        ev, n_ev = l2walk.events_scan_plain(*scan_in)
+        sev, sn = l2walk.events_scan_segmented(*scan_in, W)
+        _same_rows(sev, ev, f"W {W} T {scan_in[0].shape[1]}")
+        np.testing.assert_array_equal(sn.numpy(), n_ev.numpy())
+        facts |= _segment_facts(scan_in, W)
+    want = {"T < 32 W", "all-pad unit", "invalid unit"}
+    if W > 1:
+        want |= {"carry from an earlier segment", "carry from lp0",
+                 "leave at a segment's end", "run across a segment edge"}
+    assert want <= facts, want - facts
+
+
+# (f): E1's one rank search
+
+def test_sketch_rows_unique_before_pads(world, chunk):
+    """The precondition of E1's one search: each sketch row of the
+    fixture's batch (and of the "wide" edge, padded to 1023 words) is
+    strictly increasing before its UMAX pads, which fill the rest."""
+    for qh in (chunk[0], _edge_args(world, "wide")[0]):
+        real = qh != UMAX
+        n = real.sum(1)
+        assert bool((real == (torch.arange(qh.shape[1])[None, :]
+                              < n[:, None])).all())
+        q = torch.where(real, qh, torch.iinfo(torch.int64).max)
+        assert bool(((q[:, 1:] > q[:, :-1]) | ~real[:, 1:]).all())
+        assert int(n.min()) > 0 and int(n.max()) < qh.shape[1]
+
+
+@pytest.mark.parametrize("case", ["chunk", "past_contig"])
+def test_one_search_rank(world, chunk, case):
+    """(f): jr = ql + (q[ql] == h), and scap for h = UMAX, equals
+    ``searchsorted(right=True)`` on every entry of the units (the entries
+    outside the unit's contig, h = UMAX, included)."""
+    args = chunk if case == "chunk" else _edge_args(world, case)
+    qh, frag, u_sid, u_valid, b0 = args[0], args[2], args[3], args[4], \
+        args[5]
+    mi_hash, mi_sid, ncap = args[7], args[8], args[15]
+    M, scap = mi_hash.shape[0], qh.shape[1]
+    sid = torch.where(u_valid, u_sid.long(), 0)
+    idx = b0.clamp(0, M - ncap)[:, None] + torch.arange(ncap)[None, :]
+    lh = torch.where(mi_sid[idx].long() == sid[:, None], mi_hash[idx], UMAX)
+    q = qh[frag]
+    ql = torch.searchsorted(q, lh)
+    q_at = torch.gather(q, 1, ql.clamp(max=scap - 1))
+    jr = torch.where(lh == UMAX, scap, ql + ((ql < scap) & (q_at == lh)))
+    assert torch.equal(jr, torch.searchsorted(q, lh, right=True))
+    assert bool((lh == UMAX).any()) and bool(((lh != UMAX)
+                                              & (q_at == lh)).any())
