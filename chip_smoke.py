@@ -51,7 +51,8 @@ Phases, one JSON line each; any failure exits non-zero:
    (``read_counter``) for one mid batch (``torch.profiler`` on batch 2,
    after batch 0 warmed up, captured and replayed and batch 1
    replayed): a replayed fast batch must read the card once, for the
-   map step's ``n_live``.
+   map step's ``n_live``; the finalize the fast path runs before that
+   batch (profiled alone) must launch one kernel, the fused fold.
 3d. sanity and oracle: ``-s`` on a pure-A query against an 8A+1T repeat
    reference writes no row; then the exact path on the golden fixtures at
    ``l2_entry_cap`` 128 with the kernels' L2 span limit patched down to
@@ -125,9 +126,19 @@ Phases, one JSON line each; any failure exits non-zero:
    instruction one operation, a multiply-add two, as the float32 rate
    counts an FMA); its line also prints the bound by the formula of the
    row-per-block kernel it replaced (``bound_row_kernel_ms``).  The fold
-   (``csrc/fold.cu``, no Pallas kernel: the JAX fold is XLA code) also
-   runs at FIN 4 against 32 genomes, the longest of 1008, 2000 and 4000
-   bins; its library call is ``torch.segment_reduce`` (sums only).
+   (``csrc/fold.cu``, no Pallas kernel: the JAX finalize is XLA code) is
+   launched on the main path by ``finalize_rows`` (read the slots, fold,
+   accumulate, clear: one launch); at its site it is timed read-only
+   (``fold_rows`` on the rows the finalize folds, the table's row) and
+   fused (``finalize_case``: the slots and accumulators put back before
+   each call, that copy timed alone and taken out) against PR 13's
+   composition of five ops around ``fold_rows``.  ``fold_rows`` also runs
+   at FIN 4 against 32 genomes, the longest of 1008, 2000 and 4000 bins;
+   its library call is ``torch.segment_reduce`` (sums only).  Each fold
+   line prints its occupied share and longest occupied chain;
+   ``fold_chain`` prints the slope of time over that chain across the
+   three (a step of the chain, in microseconds and in cycles at the
+   ``clocks.sm`` read under load) and each site's chain floor.
 
 Phases that wrap the kernels' wrappers (``kernel_sites``) build their
 mappers eager: a graph replay calls no wrapper.  Then the kernels table
@@ -217,7 +228,7 @@ SITES = {
     ("events", "build_events", 0): "L2 events",
     ("events_scan", "build_events", 0): "L2 events",
     ("walk", "l2_walk_units", 0): "L2 walk",
-    ("fold", "finalize_rows", 0): "finalize",
+    ("fold", "finalize_list", 0): "finalize",
 }
 # the site whose numbers stand for the kernel in the kernels table
 TABLE_SITE = {"winnow": "sketch", "compact": "L1 leaders", "sort": "L1 hits",
@@ -477,7 +488,7 @@ def wrapper_fns() -> dict:
             "sort": (sort, "sort_rows_u32"),
             "sort_kv": (sort, "sort_rows_u32_kv"),
             "walk": (l2walk, "walk"),
-            "fold": (device_cgi, "fold_rows"),
+            "fold": (device_cgi, "finalize_rows"),
             "events": (l2walk, "events"),
             "events_scan": (l2walk, "events_scan")}
 
@@ -653,13 +664,17 @@ def check_sites(torch, path: str, seen: dict, launches: dict) -> dict:
         total[kernel] = total.get(kernel, 0) + v["launches"]
         mod, name = fns[kernel]
         for inputs in v["inputs"]:
-            args, kw = map_tensors(torch, lambda x: x.to("cuda"), inputs)
+            # a copy on the card for each version: the fold's finalize
+            # writes its inputs
+            fresh = lambda: map_tensors(torch, lambda x: x.to("cuda"), inputs)
+            args, kw = fresh()
             if kernel == "compact":
                 width = kw.get("width", args[2] if len(args) > 2
                                else args[0].shape[1])
                 plain = mod.compact_rows_plain(args[0], args[1], width)
             else:
                 plain = getattr(mod, name + "_plain")(*args, **kw)
+            args, kw = fresh()
             got = getattr(mod, name)(*args, **kw)
             err = max_abs_err(torch, tensors_of(torch, got),
                               tensors_of(torch, plain))
@@ -680,6 +695,111 @@ def check_sites(torch, path: str, seen: dict, launches: dict) -> dict:
         raise AssertionError(f"{path}: call sites add up to {total} "
                              f"launches, the run made {launches}")
     return out
+
+
+def fold_inputs(torch, np, dev) -> dict:
+    """The fold's synthetic sites: {longest: (rows, ranges)} at FIN 4
+    against 32 reference genomes, the last stretched to 1008, 2000 and
+    4000 bins (about 3, 6 and 12 Mbp), 60% of the bins occupied."""
+    from fastani_tpu_torch.models import device_cgi
+
+    rng = np.random.default_rng(7)
+    out = {}
+    for longest in (1008, 2000, 4000):
+        n_bins = [1008] * 31 + [longest]
+        B_tot = sum(n_bins)
+        ident = rng.uniform(76.0, 100.0, (4, B_tot)).astype(np.float32)
+        rows = np.where(rng.uniform(size=(4, B_tot)) < 0.6,
+                        ident.view(np.int32), -1).astype(np.int32)
+        out[longest] = (torch.as_tensor(rows, device=dev),
+                        torch.as_tensor(device_cgi.genome_bins(
+                            np.repeat(np.arange(32), n_bins), 32),
+                            device=dev))
+    return out
+
+
+def finalize_case(torch, args, kw):
+    """The fold's finalize at one call site (``finalize_rows``' args and
+    kw), repeatable: ``run(form)`` puts the table's slot rows and the
+    accumulators back as the site had them, then finalizes by ``form``:
+    "fused" (``finalize_rows``: one launch), "composition" (PR 13's
+    ``finalize_rows``: the slots, the gather, ``fold_rows``, two
+    ``index_add_``, ``index_fill_``) or "restore" (nothing more: its time
+    is taken out of the others'); returns [tab, counts, sums].  Returns
+    (run, ``finalize_rows_plain``'s [tab, counts, sums] on a copy)."""
+    from fastani_tpu_torch.models import device_cgi
+
+    tab0, acc_c0, acc_s0, fin, ranges, n_slots = args
+    rows = kw.get("rows")
+    slots = fin % n_slots
+    saved = tab0[slots]
+    tab, acc_c, acc_s = tab0.clone(), acc_c0.clone(), acc_s0.clone()
+    want = list(device_cgi.finalize_rows_plain(
+        tab0.clone(), acc_c0.clone(), acc_s0.clone(), fin, ranges, n_slots,
+        rows=rows))
+
+    def composition():
+        sl = fin % n_slots
+        counts, sums = device_cgi.fold_rows(tab[sl] if rows is None else rows,
+                                            ranges)
+        acc_c.index_add_(0, fin, counts)
+        acc_s.index_add_(0, fin, sums)
+        tab.index_fill_(0, sl, -1)
+
+    forms = {"fused": lambda: device_cgi.finalize_rows(
+                 tab, acc_c, acc_s, fin, ranges, n_slots, rows=rows),
+             "composition": composition, "restore": lambda: None}
+
+    def run(form):
+        tab.index_copy_(0, slots, saved)
+        acc_c.copy_(acc_c0)
+        acc_s.copy_(acc_s0)
+        forms[form]()
+        return [tab, acc_c, acc_s]
+
+    return run, want
+
+
+def sm_clock_mhz(torch, fn, seconds: float = 1.0) -> float:
+    """nvidia-smi's ``clocks.sm`` (MHz), read while the card replays CUDA
+    graphs of 200 calls of ``fn`` for about ``seconds``."""
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="thread_local"):
+        for _ in range(200):
+            fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    for _ in range(max(1, int(seconds * 1e3 / a.elapsed_time(b)))):
+        g.replay()
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]
+    torch.cuda.synchronize()
+    return float(clock)
+
+
+def fold_chain(torch, np, synth: list, mid: dict) -> dict:
+    """The cost of one step of the fold's chain: the slope of the kernel's
+    time over the longest occupied chain (a genome's occupied bins) across
+    the synthetic sites, in microseconds and in cycles at the SM clock
+    read under the last site's load; and each site's chain floor, its
+    longest chain times that cost."""
+    x = [r["longest_chain"] for r in synth]
+    slope_ms = float(np.polyfit(x, [r["kernel_ms"] for r in synth], 1)[0])
+    clock = sm_clock_mhz(torch, synth[-1]["run"])
+    floor = lambda r: r["longest_chain"] * slope_ms
+    row = {"phase": "fold_chain", "longest_chain": x,
+           "kernel_ms": [r["kernel_ms"] for r in synth],
+           "step_us": slope_ms * 1e3, "clocks_sm_mhz": clock,
+           "step_cycles": slope_ms * 1e-3 * clock * 1e6,
+           "chain_floor_ms": {r["site"]: floor(r) for r in [mid] + synth}}
+    emit(row)
+    return row
 
 
 def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
@@ -728,7 +848,8 @@ def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
         lengths = ranges[1].long().expand(FIN, Gr).contiguous()
         run_k = lambda: device_cgi.fold_rows(rows, ranges)
         run_p = lambda: device_cgi.fold_rows_plain(rows, ranges)
-        record("fold", site, [FIN, B_tot, Gr], list(run_k()), list(run_p()),
+        want = list(run_p())
+        record("fold", site, [FIN, B_tot, Gr], list(run_k()), want,
                run_k, run_p,
                nbytes=4 * FIN * B_tot + 8 * Gr + 8 * FIN * Gr,
                nops=2 * FIN * B_tot,
@@ -736,7 +857,10 @@ def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
                                                    lengths=lengths, axis=1),
                lib_graph=False, plain_reps=1,
                longest_bins=int(lengths.max()),
-               occupied_share=float(occ.float().mean()), **extra)
+               occupied_share=float(occ.float().mean()),
+               longest_chain=int(want[0].max()) if want[0].numel() else 0,
+               **extra)
+        return {**results[("fold", site)], "run": run_k}
 
     # K1-K3, the fold, E1 and E2 on the inputs of their call sites;
     # launches on mid per site (E1's and E2's: mid's own, once a chunk)
@@ -789,8 +913,39 @@ def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
                    murmur_sass=murmur,
                    tiles=list(winnow.tile_geometry(seg)))
         elif kernel == "fold":
-            rows, ranges = a
-            record_fold(site, rows, ranges, launches_mid=n_mid)
+            # the main path's finalize: the read-only fold on the rows it
+            # folds (the table's row since PR 10), then the fused form
+            tab, _, _, fin, ranges, n_slots = a
+            rows = kw.get("rows")
+            rows = tab[fin % n_slots] if rows is None else rows
+            fold_k = record_fold(site, rows, ranges, launches_mid=n_mid)
+            run_fin, want = finalize_case(torch, a, kw)
+            err = max(max_abs_err(torch, run_fin(form), want)
+                      for form in ("fused", "composition"))
+            if err != 0:
+                raise AssertionError(f"fold at {site}: the fused finalize or "
+                                     f"the composition differs from "
+                                     f"finalize_rows_plain (max abs err "
+                                     f"{err})")
+            ms = {form: time_ms(torch, lambda f=form: run_fin(f), 20,
+                                graph=True)
+                  for form in ("restore", "fused", "composition")}
+            FIN, B_tot = rows.shape
+            Gr = ranges.shape[1]
+            # the rows read and cleared once, the accumulators' FIN x Gr
+            # elements read and written once, the ranges and qnos read
+            b_ms, b_by = bound(8 * FIN * B_tot + 16 * FIN * Gr + 8 * Gr
+                               + 8 * FIN, 2 * FIN * B_tot)
+            emit({"phase": "kernel", "name": "fold",
+                  "site": f"{site} fused", "shape": [FIN, B_tot, Gr],
+                  "n_slots": n_slots, "rows_given": kw.get("rows") is not None,
+                  "max_abs_err": err, "restore_ms": ms["restore"],
+                  "fused_ms": ms["fused"] - ms["restore"],
+                  "composition_ms": ms["composition"] - ms["restore"],
+                  "fused_with_restore_ms": ms["fused"],
+                  "composition_with_restore_ms": ms["composition"],
+                  "fold_rows_ms": fold_k["kernel_ms"], "bound_ms": b_ms,
+                  "bound_by": b_by, "launches_mid": n_mid})
         elif kernel == "events":
             qh, frag, u_sid, b0, mi_hash = a[0], a[2], a[3], a[5], a[7]
             ncap = a[13]
@@ -903,17 +1058,11 @@ def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
                nops=n_sum * WALK_OPS_PER_EVENT, reps=20, plain_reps=1,
                n_ev_mean=n_sum / Uw, n_ev_max=int(n_ev.max()))
     # the fold at FIN 4 against 32 reference genomes, the last stretched
-    # to 1008, 2000 and 4000 bins (about 3, 6 and 12 Mbp), 60% occupied
-    rng = np.random.default_rng(7)
-    for longest in (1008, 2000, 4000):
-        n_bins = [1008] * 31 + [longest]
-        B_tot = sum(n_bins)
-        ident = rng.uniform(76.0, 100.0, (4, B_tot)).astype(np.float32)
-        rows = np.where(rng.uniform(size=(4, B_tot)) < 0.6,
-                        ident.view(np.int32), -1).astype(np.int32)
-        record_fold(f"{longest} bins", torch.as_tensor(rows, device=dev),
-                    torch.as_tensor(device_cgi.genome_bins(
-                        np.repeat(np.arange(32), n_bins), 32), device=dev))
+    # to 1008, 2000 and 4000 bins; the cost of a step of the chain
+    synth = [record_fold(f"{longest} bins", rows, ranges)
+             for longest, (rows, ranges) in fold_inputs(torch, np,
+                                                        dev).items()]
+    fold_chain(torch, np, synth, results[("fold", TABLE_SITE["fold"])])
     return {**{k: results[(k, s)] for k, s in TABLE_SITE.items()},
             "sort_kv": results[("sort_kv", "L2 events")],
             "walk": results[("walk", f"U {U}")]}
@@ -1280,7 +1429,10 @@ def batch_host_calls(torch, paths) -> dict:
     counter (``read_counter``) through ``pipeline.map_batch_cgi`` (fast:
     dispatch, CGI update, counts and mask into the device stacks) and
     ``Mapper.dispatch(to_host=True)`` + ``pipeline.batch_rows`` (exact:
-    the rows read).
+    the rows read); on the fast path also, under the profiler alone, the
+    finalize the stream runs before batch 2
+    (``StreamingCGI.finalize_list`` of the query genomes
+    ``cgi_stream_schedule`` closes there: ``finalize_launches``).
     ``seconds`` splits the function's own wall."""
     from fastani_tpu_torch.config import Parameters, scale_caps
     from fastani_tpu_torch.models import device_cgi, jitmap, pipeline
@@ -1294,6 +1446,7 @@ def batch_host_calls(torch, paths) -> dict:
     stream = pipeline.FragmentStream(paths, p)
     B = p.frag_batch
     batches = [stream.make_batch(b0, B) for b0 in (0, B, 2 * B)]
+    closed = pipeline.cgi_stream_schedule(stream, B, len(paths))[1][2]
     out = {"seconds": seconds}
     seconds["index_and_batches"] = time.time() - t0
     for mode in ("graphs", "eager"):
@@ -1332,6 +1485,12 @@ def batch_host_calls(torch, paths) -> dict:
                               if "Launch" not in k), "calls": calls,
                 "d2h_reads": sum(reads.counts.values()),
                 "d2h_reads_by_call": reads.counts}
+            if path == "fast":
+                fin = host_calls(torch, lambda: cgi.finalize_list(closed))
+                out[(path, mode)].update(
+                    finalize_fin=len(closed), finalize_calls=fin,
+                    finalize_launches=sum(n for k, n in fin.items()
+                                          if "Launch" in k))
         out[("batches", mode)] = mapper.graph_stats()
         del mapper, cgi
     return out
@@ -1388,6 +1547,17 @@ def run_graphs(torch, n_genomes: int, graph_rows: dict) -> None:
                        d2h_reads_per_batch=calls["d2h_reads"],
                        d2h_reads_by_call=calls["d2h_reads_by_call"],
                        batch_probe=per_batch[("batches", mode)])
+            if path == "fast":
+                row.update(host_launches_finalize=calls["finalize_launches"],
+                           host_calls_finalize=calls["finalize_calls"],
+                           finalize_fin=calls["finalize_fin"])
+                # the fused finalize: one kernel, no other launch
+                if calls["finalize_launches"] != 1 or \
+                        not calls["finalize_fin"]:
+                    raise AssertionError(
+                        f"graphs fast: the finalize of "
+                        f"{calls['finalize_fin']} query genomes made "
+                        f"{calls['finalize_calls']}")
         equal = less_warmup(graph["launches"], graph) == eager["launches"]
         emit({"phase": "graphs", "path": path, "pairs": n_pairs,
               "graphs": graph, "eager": eager, "byte_equal": same,

@@ -13,8 +13,9 @@ Identities come
 from a float32 LUT over (sketch size, shared count), so each row's
 identity equals the host path's.  Each genome's identities are summed as
 the reference sums them, a float32 left fold in bin order
-(``fold_sequential``; ``fold_rows``, one launch of ``csrc/fold.cu`` a
-finalize on a card), so the sums are the same bits on the card and on
+(``fold_sequential``; on a card ``finalize_rows`` is one launch of
+``csrc/fold.cu``, which also accumulates and clears the slots), so the
+sums are the same bits on the card and on
 the CPU, in every run, on a shard as in the single run, and equal to the
 exact path's host fold; the JAX package's segment sums may differ from
 them in the last bits (counts are exact).
@@ -134,9 +135,9 @@ def fold_rows(rows: torch.Tensor, ranges: torch.Tensor):
     order as ``fold_sequential`` sums.  ``rows`` (FIN, B_tot) int32 holds
     float32 identity bits, -1 where a bin is empty; ``ranges`` is
     ``genome_bins``' (2, Gr) int32 first bins and bin counts.  Returns
-    (counts (FIN, Gr) int32, sums (FIN, Gr) float32).  Launches
-    ``csrc/fold.cu`` (one thread per row and genome) on CUDA tensors, runs
-    ``fold_rows_plain`` on CPU tensors."""
+    (counts (FIN, Gr) int32, sums (FIN, Gr) float32); reads ``rows`` only.
+    Launches ``csrc/fold.cu`` (one warp per row and genome) on CUDA
+    tensors, runs ``fold_rows_plain`` on CPU tensors."""
     if rows.device.type == "cpu":
         return fold_rows_plain(rows, ranges)
     if rows.dtype != torch.int32 or ranges.dtype != torch.int32:
@@ -182,22 +183,104 @@ def fold_rows_plain(rows: torch.Tensor, ranges: torch.Tensor):
     return cs[:, start + n] - cs[:, start], acc.t()
 
 
+def fold_rows_tiled(rows: torch.Tensor, ranges: torch.Tensor, tile: int):
+    """The fold kernel's order restated in torch, for the tests: each
+    genome's bins read in tiles of ``tile`` words aligned on multiples of
+    ``tile`` of the flattened rows (a genome's first tile may start before
+    it and its last run past it, both masked), each tile's occupied bins
+    counted at once (the kernel's ballot) and their identities added one
+    by one in bin order, empty bins skipped.  Returns what
+    ``fold_rows_plain`` returns, the same bits at every ``tile``."""
+    FIN, B_tot = rows.shape
+    flat = rows.reshape(-1)
+    start, n = ranges[0].long(), ranges[1].long()
+    first = torch.arange(FIN)[:, None] * B_tot + start     # (FIN, Gr)
+    lead = first % tile
+    n_tiles = int(((lead + n + tile - 1) // tile).max()) if n.numel() else 0
+    counts = torch.zeros(first.shape, dtype=torch.int32)
+    sums = torch.zeros(first.shape, dtype=torch.float32)
+    for t in range(n_tiles):
+        in_tile = torch.zeros_like(counts)
+        for lane in range(tile):
+            i = t * tile + lane - lead                  # bin of the genome
+            v = flat[(first + i).clamp(0, max(flat.numel() - 1, 0))]
+            occ = (i >= 0) & (i < n) & (v >= 0)
+            in_tile += occ
+            sums = torch.where(occ, sums + v.view(torch.float32), sums)
+        counts += in_tile
+    return counts, sums
+
+
+def _check_finalize_args(tab, acc_counts, acc_sums, fin_qnos, ranges,
+                         n_slots: int, rows) -> None:
+    """The kernel form's checks: dtypes, shapes, the card, contiguity
+    (every tensor is read or written where it lies)."""
+    tensors = [tab, acc_counts, acc_sums, fin_qnos, ranges]
+    want = [torch.int32, torch.int32, torch.float32, torch.int64,
+            torch.int32]
+    if rows is not None:
+        tensors.append(rows)
+        want.append(torch.int32)
+    got = [t.dtype for t in tensors]
+    if got != want:
+        raise ValueError(f"finalize_rows: dtypes {got}, expected {want}")
+    if (acc_counts.shape != acc_sums.shape
+            or acc_counts.shape[1] != ranges.shape[1]
+            or not 1 <= n_slots <= tab.shape[0]
+            or (rows is not None and tuple(rows.shape)
+                != (fin_qnos.shape[0], tab.shape[1]))):
+        raise ValueError(f"finalize_rows: tab {tuple(tab.shape)}, acc "
+                         f"{tuple(acc_counts.shape)} and "
+                         f"{tuple(acc_sums.shape)}, ranges "
+                         f"{tuple(ranges.shape)}, n_slots {n_slots}, rows "
+                         f"{None if rows is None else tuple(rows.shape)}")
+    cuda.require_cuda("finalize_rows", *tensors)
+
+
 def finalize_rows(tab, acc_counts, acc_sums, fin_qnos: torch.Tensor,
                   ranges, n_slots: int, rows=None):
     """Fold the table rows of the listed query genomes into the (Gq, Gr)
     accumulators and clear their slots, in place.  ``fin_qnos`` (FIN,)
-    lists query genomes whose last fragment has been folded;
-    ``ranges`` is ``genome_bins``' (2, Gr) table; ``rows`` (FIN, B_tot),
-    when given, is folded in place of their slots' rows.  Each genome's
-    count and sum come from ``fold_rows`` (one kernel launch on a card),
-    so a sum does not depend on the other genomes."""
+    int64 lists query genomes whose last fragment has been folded, no two
+    in one slot (``StreamingCGI.finalize_list`` checks); ``ranges`` is
+    ``genome_bins``' (2, Gr) table; ``rows`` (FIN, B_tot), when given, is
+    folded in place of their slots' rows.  Each genome's count and sum are
+    ``fold_rows``', so a sum does not depend on the other genomes.  On a
+    CUDA table one launch of ``csrc/fold.cu`` does it all (read the slots,
+    fold, accumulate, clear); on CPU tensors ``finalize_rows_plain``
+    runs."""
+    if tab.device.type == "cpu":
+        return finalize_rows_plain(tab, acc_counts, acc_sums, fin_qnos,
+                                   ranges, n_slots, rows)
+    FIN = fin_qnos.shape[0]
+    if not FIN:
+        return tab, acc_counts, acc_sums
+    _check_finalize_args(tab, acc_counts, acc_sums, fin_qnos, ranges,
+                         n_slots, rows)
+    Gq, Gr = acc_counts.shape
+    # the ranges' two rows by address, so no torch op runs on the card
+    err = cuda.lib("fold").fa_finalize_rows(
+        tab.data_ptr(), None if rows is None else rows.data_ptr(),
+        fin_qnos.data_ptr(), ranges.data_ptr(), ranges.data_ptr() + 4 * Gr,
+        FIN, n_slots, tab.shape[1], Gr, Gq, acc_counts.data_ptr(),
+        acc_sums.data_ptr(), cuda.stream())
+    cuda.check(err, "fold")
+    cuda.LAUNCHES["fold"] += 1
+    return tab, acc_counts, acc_sums
+
+
+def finalize_rows_plain(tab, acc_counts, acc_sums, fin_qnos: torch.Tensor,
+                        ranges, n_slots: int, rows=None):
+    """Plain PyTorch version of ``finalize_rows``: the slots' rows
+    gathered (unless ``rows`` is given), ``fold_rows_plain``, two
+    ``index_add_`` into the accumulators, ``index_fill_`` of the slots."""
     FIN = fin_qnos.shape[0]
     if not FIN:
         return tab, acc_counts, acc_sums
     slots = fin_qnos % n_slots
     if rows is None:
         rows = tab[slots]                               # (FIN, B_tot)
-    counts, sums = fold_rows(rows, ranges)
+    counts, sums = fold_rows_plain(rows, ranges)
     acc_counts.index_add_(0, fin_qnos, counts)
     acc_sums.index_add_(0, fin_qnos, sums)
     # index_fill_, not tab[slots] = -1: the latter uploads the -1 with a
@@ -306,9 +389,14 @@ class StreamingCGI:
             [c.length for c in index.metadata], gos, params.frag_len)
         self.B_tot = int(len(gid_of_bin))
         self._bin_start = torch.as_tensor(bin_start, device=dev)
-        # each genome's bin range, made once for every finalize call
-        self._ranges = torch.as_tensor(
-            genome_bins(gid_of_bin, n_ref_genomes), device=dev)
+        # each genome's bin range, made once for every finalize call; the
+        # fold kernel clears a slot's row range by range, so they must
+        # cover it
+        ranges = genome_bins(gid_of_bin, n_ref_genomes)
+        if int(ranges[1].astype(np.int64).sum()) != self.B_tot:
+            raise ValueError(f"the genomes' bins cover "
+                             f"{int(ranges[1].sum())} of {self.B_tot} bins")
+        self._ranges = torch.as_tensor(ranges, device=dev)
         self._gos = torch.as_tensor(gos, device=dev)
         s_max = max(params.sketch_cap, 1)
         self._lut = torch.as_tensor(identity_lut_full(params.kmer_size, s_max),
@@ -330,7 +418,9 @@ class StreamingCGI:
     def finalize_list(self, qnos: Sequence[int], peers=(),
                       reduce_max=None) -> None:
         """Close the listed query genomes: fold their slots' bin rows into
-        this accumulator and clear the slots.
+        this accumulator and clear the slots.  No two of ``qnos`` may
+        share a slot (``q % n_slots``): on a card one launch reads and
+        clears every slot of the call.
 
         On a mesh, a query genome's fragments are split over the q cells of
         each reference shard, so a bin's best identity may sit in another
@@ -342,7 +432,14 @@ class StreamingCGI:
         its max over the processes that run the shard's other cells.  The
         tables hold non-negative float32 bits or -1, so the max of the
         int32 words is the max of the identities."""
-        fin = torch.from_numpy(np.asarray(list(qnos), np.int64))
+        qnos = [int(q) for q in qnos]
+        if len({q % self.n_slots for q in qnos}) != len(qnos):
+            raise ValueError(f"finalize_list: query genomes {qnos} share a "
+                             f"slot of {self.n_slots}")
+        if any(not 0 <= q < self.n_qg for q in qnos):
+            raise ValueError(f"finalize_list: query genomes {qnos} outside "
+                             f"[0, {self.n_qg})")
+        fin = torch.from_numpy(np.asarray(qnos, np.int64))
         if self._tab.device.type == "cuda":
             # pinned and non_blocking: a pageable copy waits for the device
             fin = fin.pin_memory().to(self._tab.device, non_blocking=True)

@@ -70,7 +70,8 @@ _SIGNATURES = {
                "fa_events_scan": [_P] * 6 + [_I, _I, _I] + [_P] * 8},
     "walk": {"fa_walk": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _P, _P, _P, _P]},
-    "fold": {"fa_fold_rows": [_P, _P, _P, _I, _I, _I, _P, _P, _P]},
+    "fold": {"fa_fold_rows": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+             "fa_finalize_rows": [_P] * 5 + [_I] * 5 + [_P] * 3},
 }
 
 

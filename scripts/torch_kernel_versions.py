@@ -5,19 +5,26 @@ one process on one card.
     python3 scripts/torch_kernel_versions.py KERNEL OTHER_CU [OTHER_CU ...]
 
 KERNEL is ``walk`` (K5), ``sort_kv`` (K4), ``sort`` (K3), ``compact``
-(K2), ``winnow`` (K1), ``events`` (E1) or ``events_scan`` (E2); each
-OTHER_CU is a source with the same C entry points as
+(K2), ``winnow`` (K1), ``events`` (E1), ``events_scan`` (E2) or ``fold``;
+each OTHER_CU is a source with the same C entry points as
 ``fastani_tpu_torch/csrc/`` has for it (for ``winnow`` also the
 ``fa_winnow_rows`` entry point of the row-per-block K1, whose int64 hashes
-are compared as int32 words), built with the flags of ``ops/cuda.py`` into
-``.smokework/``.  The inputs: for ``walk``, ``chip_smoke.real_streams`` (U
-512 and 4096, scap 320); for ``sort_kv``, ``chip_smoke.kv_inputs``; for
+are compared as int32 words; for ``fold`` a source without
+``fa_finalize_rows``, such as PR 13's, whose finalize is then the
+composition of five ops around its ``fa_fold_rows``), built with the
+flags of ``ops/cuda.py`` into ``.smokework/``.  The inputs: for
+``walk``, ``chip_smoke.real_streams`` (U 512 and 4096, scap 320); for
+``sort_kv``, ``chip_smoke.kv_inputs``; for
 ``sort``, ``compact``, ``winnow``, ``events`` and ``events_scan``, what
 each of the kernel's call sites gets on the main path
 (``chip_smoke.capture_sites`` on bench.py's mid genomes), and for the
 last two also what ``build_events`` gives them at U 4096 inside
-``chip_smoke.real_streams``.  Every version is compared with the plain
-version and timed against this one in turns (other, this, this, other;
+``chip_smoke.real_streams``; for ``fold``, ``fold_rows`` on the rows of
+the main path's finalize site and at ``chip_smoke.fold_inputs``' three
+sites, and the finalize at its site (``chip_smoke.finalize_case``: the
+slots and accumulators put back before each call, which is also timed
+alone as the case "restore only").  Every version is compared with the
+plain version and timed against this one in turns (other, this, this, other;
 CUDA events around a CUDA graph of 20 calls, after a warm-up); ``winnow``
 also times this source at the tile widths of ``WINNOW_TILES``.  Prints
 one JSON line with the card's name and power limit, each version's max
@@ -111,6 +118,8 @@ def cases(torch, np, kernel, chip_smoke):
         a, kw = v["args"], v["kw"]
         if kernel in chip_smoke.EVENTS:
             out.append(event_case(torch, chip_smoke, kernel, site, (a, kw)))
+        elif kernel == "fold":
+            out += fold_cases(torch, np, chip_smoke, site, a, kw)
         elif kernel == "winnow":
             run, as_words = winnow_run(torch, a)
             out.append((f"{site} {list(a[0].shape)}", run,
@@ -141,6 +150,31 @@ def cases(torch, np, kernel, chip_smoke):
     return out
 
 
+def fold_cases(torch, np, chip_smoke, site, a, kw):
+    """``cases`` entries of the fold: ``fold_rows`` on the rows the main
+    path's finalize folds and at the synthetic sites, the finalize (fused
+    where the library has ``fa_finalize_rows``, else the composition
+    around its ``fa_fold_rows``) and its restore alone."""
+    from fastani_tpu_torch.models import device_cgi
+    from fastani_tpu_torch.ops import cuda as kc
+
+    tab, _, _, fin, ranges, n_slots = a
+    rows = kw.get("rows")
+    inputs = {site: (tab[fin % n_slots] if rows is None else rows, ranges)}
+    inputs.update({f"{n} bins": v for n, v in chip_smoke.fold_inputs(
+        torch, np, torch.device("cuda")).items()})
+    out = [(f"{label} {list(r.shape)}", lambda r=r, g=g:
+            device_cgi.fold_rows(r, g), device_cgi.fold_rows_plain(r, g),
+            list) for label, (r, g) in inputs.items()]
+    run_fin, want = chip_smoke.finalize_case(torch, a, kw)
+    fused = lambda: run_fin("fused" if hasattr(kc.lib("fold"),
+                                               "fa_finalize_rows")
+                            else "composition")
+    return out + [(f"{site} finalize {list(tab.shape)}", fused, want, list),
+                  (f"{site} finalize, restore only", lambda: run_fin(
+                      "restore"), [x.clone() for x in a[:3]], list)]
+
+
 def event_case(torch, chip_smoke, kernel, label, inputs):
     """A ``cases`` entry of E1 or E2 on one call's (args, kw)."""
     from fastani_tpu_torch.models import l2walk
@@ -161,7 +195,7 @@ def main(argv) -> int:
 
     if len(argv) < 3 or argv[1] not in ("walk", "sort_kv", "sort",
                                           "compact", "winnow", "events",
-                                          "events_scan"):
+                                          "events_scan", "fold"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -188,9 +222,11 @@ def main(argv) -> int:
         signatures = kc._SIGNATURES[source]
         if source == "winnow" and not hasattr(lib, "fa_winnow_tiles"):
             signatures = {"fa_winnow_rows": _WINNOW_ROWS}
+        # an older source may lack an entry point (fold: fa_finalize_rows)
         for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
         libs[str(src)] = lib
     this = kc.lib(source)
 

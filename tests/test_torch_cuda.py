@@ -1,5 +1,6 @@
 """Card-only parity tests of the port's CUDA kernels (K1-K5, the L2 event
-build's E1 and E2, and the fold) against their plain PyTorch versions, of
+build's E1 and E2, and the fold, read-only and fused into the finalize)
+against their plain PyTorch versions, of
 the map step's CUDA graphs against the eager step, and of the fast and
 exact paths (single-device and on a 2x2 mesh) and index persistence on
 the card against the same runs on the CPU.  Each test asks for the
@@ -16,6 +17,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from fastani_tpu_torch.config import Parameters
 from fastani_tpu_torch.index import device_build
@@ -704,6 +706,161 @@ def test_fold_kernel_matches_plain(cuda_device, bins, fin):
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu().view(torch.int32),
                        want[1].view(torch.int32))
+
+
+# genome bin counts: empty, 1, one under, at and over a warp's 32, others
+# (B_tot 277, no multiple of 32, so most genomes start unaligned)
+EDGE_BINS = [3, 0, 1, 31, 32, 33, 5, 64, 2, 45, 0, 61]
+NAN = np.array([0x7FC00000], np.int32).view(np.float32)[0]
+
+
+def adversarial_rows(rng, n_bins):
+    """(3, sum(n_bins)) int32 rows, 40% of the bins empty (-1).  Row 0:
+    identities; row 1: magnitudes whose sum depends on the order of the
+    adds (1e-30, 3e-8, 1.0, 1e30, 100), +0.0 and subnormals; row 2: the
+    same with +inf in one genome and a NaN with the sign clear in
+    another.  (tests/test_torch_fold.py uses them on the CPU.)"""
+    B_tot = sum(n_bins)
+    pool = np.array([1e-30, 3e-8, 1.0, 1e30, 100.0, 0.0, 1e-40, 1e-45,
+                     3e-39], np.float32)
+    vals = np.stack([rng.uniform(76.0, 100.0, B_tot).astype(np.float32),
+                     rng.choice(pool, B_tot), rng.choice(pool, B_tot)])
+    rows = vals.view(np.int32).copy()
+    rows[rng.uniform(size=rows.shape) < 0.4] = -1
+    lo = np.cumsum(n_bins) - n_bins
+    big = [g for g, n in enumerate(n_bins) if n >= 31]
+    rows[2, lo[big[0]] + 7] = np.float32(np.inf).view(np.int32)
+    rows[2, lo[big[1]] + 3] = NAN.view(np.int32)
+    # a genome of 1.0 then ten values under half its ulp: each add leaves
+    # 1.0, while the ten summed first would move it
+    rows[1, lo[big[2]]:lo[big[2]] + n_bins[big[2]]] = -1
+    rows[1, lo[big[2]]:lo[big[2]] + 11] = np.array(
+        [1.0] + [3e-8] * 10, np.float32).view(np.int32)
+    return rows
+
+
+def _occupied(rng, n, B_tot, share=0.6):
+    ident = rng.uniform(76.0, 100.0, (n, B_tot)).astype(np.float32)
+    return np.where(rng.uniform(size=(n, B_tot)) < share,
+                    ident.view(np.int32), -1).astype(np.int32)
+
+
+class _CardOps(TorchDispatchMode):
+    """The torch ops dispatched while it is on, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.seen.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def _finalize_three_ways(dev, tab, acc_c, acc_s, fin, n_bins, n_slots,
+                         rows):
+    """The table, counts and sums after finalize_rows on the card (one
+    fold launch, no torch op: held here), after finalize_rows_plain on
+    the card, and after it on the CPU, each on fresh copies."""
+    from fastani_tpu_torch.models import device_cgi
+    from fastani_tpu_torch.ops import cuda
+
+    ranges = device_cgi.genome_bins(np.repeat(np.arange(len(n_bins)),
+                                              n_bins), len(n_bins))
+    out = []
+    for d, fn in ((dev, device_cgi.finalize_rows),
+                  (dev, device_cgi.finalize_rows_plain),
+                  (torch.device("cpu"), device_cgi.finalize_rows_plain)):
+        t = [torch.tensor(x, device=d) for x in (tab, acc_c, acc_s)]
+        args = (*t, torch.tensor(fin, dtype=torch.int64, device=d),
+                torch.tensor(ranges, device=d), n_slots)
+        kw = {"rows": None if rows is None else torch.tensor(rows, device=d)}
+        if fn is device_cgi.finalize_rows:
+            before = cuda.LAUNCHES["fold"]
+            with _CardOps() as ops:
+                fn(*args, **kw)
+            assert cuda.LAUNCHES["fold"] == before + 1 and ops.seen == []
+        else:
+            fn(*args, **kw)
+        out.append([x.cpu() for x in t])
+    return out
+
+
+def _same_bits(a, b, nan_as_nan=False, flushed=False):
+    """Equal tensors, float32 compared by their bits.  With ``nan_as_nan``
+    any NaN matches any NaN (the card's float add returns the canonical
+    NaN, the CPU's keeps its operand's payload); with ``flushed`` a +0.0
+    in ``b`` matches a positive subnormal in ``a`` (the card's
+    ``index_add_``, a float atomic, flushes a subnormal sum to zero)."""
+    for x, y in zip(a, b):
+        if x.dtype == torch.float32:
+            ok = torch.isnan(x) & torch.isnan(y) if nan_as_nan else False
+            if flushed:
+                ok = ok | ((x > 0) & (x < torch.finfo(torch.float32).tiny)
+                           & (y.view(torch.int32) == 0))
+            x, y = x.view(torch.int32), y.view(torch.int32)
+            assert bool(((x == y) | ok).all())
+        else:
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("given", [False, True])
+@pytest.mark.parametrize("fin", [1, 2, 4])
+@pytest.mark.parametrize("bins", [1008, 2000, 4000])
+def test_fused_finalize_matches_plain(cuda_device, bins, fin, given):
+    """finalize_rows on a card table, one fold launch and no other op on
+    the card: the table after the call, the counts and the sum bits equal
+    finalize_rows_plain's on the CPU (and on the card), for 32 reference
+    genomes of unequal bin counts, the longest of ``bins``, 60% occupied;
+    ``fin`` query genomes in recycled slots (qno past n_slots), the
+    accumulators already holding sums, the rows read from the slots or
+    given (the mesh's q-merged rows)."""
+    rng = np.random.default_rng(10 * bins + 2 * fin + given)
+    n_bins = list(rng.integers(1, bins, 31)) + [bins]
+    B_tot, n_slots, n_qg = sum(n_bins), fin + 1, 2 * fin + 3
+    fin_q = np.arange(fin) + n_slots + 1
+    card, card_plain, cpu = _finalize_three_ways(
+        cuda_device, _occupied(rng, n_slots, B_tot),
+        rng.integers(0, 100, (n_qg, 32)).astype(np.int32),
+        rng.uniform(0, 5000, (n_qg, 32)).astype(np.float32), fin_q, n_bins,
+        n_slots, _occupied(rng, fin, B_tot) if given else None)
+    _same_bits(card, cpu)
+    _same_bits(card, card_plain)
+    assert bool((card[0][fin_q % n_slots] == -1).all())
+    assert int(card[1].sum()) > 100 * fin
+
+
+@pytest.mark.parametrize("given", [False, True])
+def test_fused_finalize_adversarial(cuda_device, given):
+    """The fused finalize and fold_rows on the card on adversarial rows
+    (order-sensitive magnitudes, +0.0, subnormals, +inf, a NaN) of edge
+    genomes (0, 1, 31, 32, 33 bins at unaligned starts): the finalize
+    bit-equal to the CPU's plain version but for a NaN's payload, and to
+    the card's but for the subnormal sums its ``index_add_`` flushes to
+    zero (the kernel adds without flushing, as the CPU does); fold_rows
+    bit-equal to fold_rows_plain on the card."""
+    from fastani_tpu_torch.models import device_cgi
+
+    rng = np.random.default_rng(77 + given)
+    rows = adversarial_rows(rng, EDGE_BINS)
+    B_tot = rows.shape[1]
+    tab = _occupied(rng, 3, B_tot) if given else rows
+    fin_q = np.array([4, 5, 3])                       # slots 1, 2, 0
+    card, card_plain, cpu = _finalize_three_ways(
+        cuda_device, tab, np.zeros((6, len(EDGE_BINS)), np.int32),
+        np.zeros((6, len(EDGE_BINS)), np.float32), fin_q, EDGE_BINS, 3,
+        rows[[1, 2, 0]] if given else None)
+    _same_bits(card, cpu, nan_as_nan=True)
+    _same_bits(card, card_plain, flushed=True)
+    assert bool(torch.isnan(card[2]).any() and torch.isinf(card[2]).any())
+    assert bool(((card[2] > 0) & (card[2] < 1e-38)).any())
+    ranges = torch.as_tensor(device_cgi.genome_bins(
+        np.repeat(np.arange(len(EDGE_BINS)), EDGE_BINS), len(EDGE_BINS)))
+    got = device_cgi.fold_rows(torch.as_tensor(rows, device=cuda_device),
+                               ranges.to(cuda_device))
+    _same_bits([x.cpu() for x in got], [x.cpu() for x in
+               device_cgi.fold_rows_plain(torch.as_tensor(
+                   rows, device=cuda_device), ranges.to(cuda_device))])
 
 
 def test_capture_with_host_read_raises(cuda_device, tmp_path, monkeypatch):

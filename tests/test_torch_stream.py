@@ -38,7 +38,7 @@ REFS = ("strainA.fa", "strainB.fa", "base.fa")
 # the host's tensors; on a card they launch a kernel and read nothing
 WRAPPERS = ((winnow, "winnow_rows"), (compact, "compact_rows"),
             (sort, "sort_rows_u32"), (sort, "sort_rows_u32_kv"),
-            (l2walk, "walk"), (device_cgi, "fold_rows"))
+            (l2walk, "walk"), (device_cgi, "finalize_rows"))
 # the tensor methods that read a tensor's values to the host
 READS = {"tolist", "item", "__int__", "__bool__", "__float__", "__index__",
          "cpu", "numpy"}
