@@ -139,6 +139,30 @@ Phases, one JSON line each; any failure exits non-zero:
    ``fold_chain`` prints the slope of time over that chain across the
    three (a step of the chain, in microseconds and in cycles at the
    ``clocks.sm`` read under load) and each site's chain floor.
+scale: the main path at the JAX package's own scale, through the CLI on
+   the card with the caps ``scale_caps`` and the auto-tune give.  First
+   bench.py's ``quick`` (QUICK: 8 genomes x 1 Mbp) and ``full`` (FULL:
+   100 genomes x 3 Mbp), its generator, seed 123, all against all: every
+   ordered pair has a TSV row, 0 fallback fragments; then the clustered 1000-genome all-vs-all of
+   scripts/run_scale1000.py (SCALE1000: 20 unrelated clusters of 50
+   genomes x 1 Mbp, seed 1234): every same-cluster ordered pair has a
+   row, and ``scripts/torch_scale1000.py``'s run of it (per-cluster caps)
+   has the same rows, equal counts, ANI within 1e-3.  Each panel's first
+   SUBSET_QUERIES query genomes against all run again through the fast
+   path eagerly with every wrapper wrapped and through the exact path,
+   both TSVs byte-equal to the whole run's lines of those queries, and
+   every kernel is held bit-equal to its plain version at each call site
+   of the eager run (among them K3 at an L1 width past 16384 and K2's
+   leaders at cand_cap 256 on ``full``, the unit compaction at 524288
+   and the fold over 1000 reference genomes on the 1000); the new sites
+   (SCALE_TIMED) get kernel lines as phase 4's.  Last, references whose
+   L1 hit keys pass 32 bits (``build_draft_panel``: 2102 contigs, the
+   short ones of DRAFT_CONTIG_BP bases) through the CLI on the card and
+   on the CPU: ``wpos_bits`` None, int64 keys on every seqId, the same
+   rows, equal counts, ANI within 1e-3.  Each run prints its
+   wall, pairs/s, phase seconds, peak device bytes, graphs, batches,
+   caps, the counters' maxima, fallback and redone work and every
+   kernel's launches.
 
 Phases that wrap the kernels' wrappers (``kernel_sites``) build their
 mappers eager: a graph replay calls no wrapper.  Then the kernels table
@@ -147,7 +171,8 @@ path, ``launches``, through the exact path, ``launches_exact``, through
 ``--mesh 2x2``, ``launches_mesh``, with the largest error of its mesh
 sites, ``max_abs_err_mesh``, under ``--profile``, ``launches_profile``,
 and in the sharded step, ``launches_step``, with the largest error of
-its sites there, ``max_abs_err_step``), the
+its sites there, ``max_abs_err_step``; and through the scale phase's
+whole runs, ``launches_full`` and ``launches_scale1000``), the
 nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits non-zero and prints no result.
@@ -802,19 +827,14 @@ def fold_chain(torch, np, synth: list, mid: dict) -> dict:
     return row
 
 
-def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
-    from fastani_tpu_torch.config import Parameters, scale_caps
-    from fastani_tpu_torch.models import device_cgi, l2walk
-    from fastani_tpu_torch.ops import compact, sort, winnow
-    from fastani_tpu_torch.ops import cuda as kc
-    from fastani_tpu_torch.ops.xputils import UMAX
-
-    dev = torch.device("cuda")
-    p = Parameters().finalize()
-    scale_caps(N_GENOMES, p)
-    B, scap = p.frag_batch, p.sketch_cap
-    U = min(512, B)                               # L2 chunk of units
-    results = {}
+def kernel_recorders(torch, results: dict):
+    """Phase 4's ``record`` and ``record_fold``: each holds a kernel's
+    outputs to its plain version's (max abs err 0), times the kernel (a
+    CUDA graph of ``reps`` calls), its plain version and its library call,
+    computes the bound from the bytes and operations the inputs need,
+    emits the kernel line and keeps it in ``results`` under (name,
+    site)."""
+    from fastani_tpu_torch.models import device_cgi
 
     def record(name, site, shape, outs_k, outs_p, fn_k, fn_p, nbytes, nops,
                fn_lib=None, reps=20, plain_reps=3, lib_graph=True, **extra):
@@ -862,6 +882,197 @@ def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
                **extra)
         return {**results[("fold", site)], "run": run_k}
 
+    return record, record_fold
+
+
+def kv_compares(R: int, n: int) -> int:
+    """The compare-exchanges of a bitonic network over R rows of n keys
+    padded to a power of two."""
+    N = 1 << (n - 1).bit_length()
+    lg = N.bit_length() - 1
+    return R * (N // 2) * lg * (lg + 1) // 2
+
+
+def time_site(torch, record, record_fold, kernel, site, a, kw, murmur,
+              **extra):
+    """The kernel line of one call site (``record``) on the inputs the
+    path gave it (``a``, ``kw``), with its bytes and operations; ``extra``
+    goes into the line (the site's launches).  The fold's site also gets
+    its fused finalize line (``finalize_case``)."""
+    from fastani_tpu_torch.models import device_cgi, l2walk
+    from fastani_tpu_torch.ops import compact, sort, winnow
+    from fastani_tpu_torch.ops.xputils import UMAX
+
+    dev = torch.device("cuda")
+    if kernel == "winnow":
+        rows, ctg, base, tl, k, w = a
+        R, W = rows.shape
+        seg = W - (w - 1) - (k - 1)
+        run_k = lambda: winnow.winnow_rows(rows, ctg, base, tl, k, w)
+        run_p = lambda: winnow.winnow_rows_plain(rows, ctg, base, tl, k,
+                                                 w)
+        # the row-per-block kernel's formula: int64 hashes out (9
+        # bytes a position); per position two murmur3 (~72 32-bit ops
+        # each), packing two k-byte keys (4k), the w-long window scan
+        old_ms, old_by = bound(
+            rows.numel() + 12 * R + 9 * R * seg,
+            R * (W - k + 1) * (2 * 72 + 4 * k) + R * seg * 2 * w)
+        record("winnow", site, [R, W], list(run_k()), list(run_p()),
+               run_k, run_p,
+               # the rows and (ctg, base, len) read, 1-byte emits and
+               # 4-byte hashes written; two murmur3 a k-mer start
+               nbytes=rows.numel() + 12 * R + 5 * R * seg,
+               nops=R * (W - k + 1) * 2 * murmur["ops"],
+               plain_reps=1, **extra,
+               bound_row_kernel_ms=old_ms, bound_row_kernel_by=old_by,
+               murmur_sass=murmur,
+               tiles=list(winnow.tile_geometry(seg)))
+    elif kernel == "fold":
+        # the main path's finalize: the read-only fold on the rows it
+        # folds (the table's row), then the fused form
+        tab, _, _, fin, ranges, n_slots = a
+        rows = kw.get("rows")
+        rows = tab[fin % n_slots] if rows is None else rows
+        fold_k = record_fold(site, rows, ranges, **extra)
+        run_fin, want = finalize_case(torch, a, kw)
+        err = max(max_abs_err(torch, run_fin(form), want)
+                  for form in ("fused", "composition"))
+        if err != 0:
+            raise AssertionError(f"fold at {site}: the fused finalize or "
+                                 f"the composition differs from "
+                                 f"finalize_rows_plain (max abs err "
+                                 f"{err})")
+        ms = {form: time_ms(torch, lambda f=form: run_fin(f), 20,
+                            graph=True)
+              for form in ("restore", "fused", "composition")}
+        FIN, B_tot = rows.shape
+        Gr = ranges.shape[1]
+        # the rows read and cleared once, the accumulators' FIN x Gr
+        # elements read and written once, the ranges and qnos read
+        b_ms, b_by = bound(8 * FIN * B_tot + 16 * FIN * Gr + 8 * Gr
+                           + 8 * FIN, 2 * FIN * B_tot)
+        emit({"phase": "kernel", "name": "fold",
+              "site": f"{site} fused", "shape": [FIN, B_tot, Gr],
+              "n_slots": n_slots, "rows_given": kw.get("rows") is not None,
+              "max_abs_err": err, "restore_ms": ms["restore"],
+              "fused_ms": ms["fused"] - ms["restore"],
+              "composition_ms": ms["composition"] - ms["restore"],
+              "fused_with_restore_ms": ms["fused"],
+              "composition_with_restore_ms": ms["composition"],
+              "fold_rows_ms": fold_k["kernel_ms"], "bound_ms": b_ms,
+              "bound_by": b_by, **extra})
+    elif kernel == "events":
+        qh, frag, u_sid, b0, mi_hash = a[0], a[2], a[3], a[5], a[7]
+        ncap = a[13]
+        U, scap, M = u_sid.shape[0], qh.shape[1], mi_hash.shape[0]
+        T = 2 * ncap + 1
+        # the distinct entries of the units' windows and sketch rows,
+        # each read once; the (U, T) keys and records and five
+        # per-unit words written once
+        b0c = b0.clamp(0, M - ncap)
+        entries = int(torch.unique(
+            b0c[:, None] + torch.arange(ncap, device=dev)).numel())
+        n_rows = int(torch.unique(frag).numel())
+        run_k = lambda: l2walk.events(*a, **kw)
+        run_p = lambda: l2walk.events_plain(*a, **kw)
+        record("events", site, [U, T, scap],
+               tensors_of(torch, run_k()), tensors_of(torch, run_p()),
+               run_k, run_p,
+               nbytes=(entries * sum(x.element_size() for x in a[7:12])
+                       + n_rows * (scap + 1) * 8 + U * 29
+                       + 8 * U * T + 17 * U),
+               nops=U * ncap * (4 * (scap + 1).bit_length()
+                                + EVENTS_OPS_PER_ENTRY),
+               **extra, distinct_entries=entries,
+               sketch_rows=n_rows)
+    elif kernel == "events_scan":
+        keys = a[0]
+        U, T = keys.shape
+        run_k = lambda: l2walk.events_scan(*a, **kw)
+        run_p = lambda: l2walk.events_scan_plain(*a, **kw)
+        got_k = tensors_of(torch, run_k())
+        # the sorted keys and records read once, 13 bytes a unit; the
+        # six (U, T) rows and n_ev written once
+        record("events_scan", site, [U, T], got_k,
+               tensors_of(torch, run_p()), run_k, run_p,
+               nbytes=8 * U * T + 13 * U + 24 * U * T + 4 * U,
+               nops=U * T * EVENTS_SCAN_OPS_PER_EVENT,
+               **extra,
+               n_ev_mean=float(got_k[-1].float().mean()))
+    elif kernel == "compact":
+        flags, pays = a[0], a[1]
+        width = kw.get("width", a[2] if len(a) > 2 else flags.shape[1])
+        R, n = flags.shape
+        # the flag bytes, one word per payload at each flagged position
+        # below the width, the (R, width) outputs written once
+        moved = int(flags.sum(dim=1).clamp(max=width).sum())
+        run_k = lambda: compact.compact_rows(flags, pays, width)
+        run_p = lambda: compact.compact_rows_plain(flags, pays, width)
+        record("compact", site, [R, n, len(pays)], list(run_k()),
+               list(run_p()), run_k, run_p,
+               nbytes=R * n + sum(x.element_size() * (moved + R * width)
+                                  for x, _ in pays),
+               nops=R * n, width=width,
+               words=[str(x.dtype).replace("torch.", "") for x, _ in pays],
+               flag_share=float(flags.float().mean()),
+               **extra)
+    elif kernel == "sort_kv":
+        keys, pay = a
+        R, n = keys.shape
+        run_k = lambda: sort.sort_rows_u32_kv(keys, pay)
+        run_p = lambda: sort.sort_rows_u32_kv_plain(keys, pay)
+        # 8-byte composites read and written once; two operations a
+        # compare of the bitonic network
+        record("sort_kv", site, [R, n], list(run_k()), list(run_p()), run_k,
+               run_p, nbytes=R * n * 16, nops=kv_compares(R, n) * 2,
+               fn_lib=lambda: torch.sort(keys, dim=-1, stable=True), **extra)
+    elif kernel == "walk":
+        ev, s_u, n_ev, scap = a
+        U = s_u.shape[0]
+        n_sum = float(n_ev.sum())
+        run_k = lambda: l2walk.walk(ev, s_u, n_ev, scap)
+        run_p = lambda: l2walk.walk_plain(ev, s_u, n_ev, scap)
+        record("walk", site, [U, ev["dn"].shape[1], scap], list(run_k()),
+               list(run_p()), run_k, run_p, nbytes=n_sum * 24 + U * 20,
+               nops=n_sum * WALK_OPS_PER_EVENT, plain_reps=1,
+               n_ev_mean=n_sum / U, n_ev_max=int(n_ev.max()), **extra)
+    else:
+        x = a[0]
+        R, n = x.shape
+        # torch.sort over the same int32 words where every key is below
+        # 2^31 (UMAX pads, -1, sort first there: the time is the
+        # yardstick), else over u32 values in int64 words
+        lib_words = "int64"
+        xl = x if x.dtype == torch.int64 else (x.to(torch.int64) & UMAX)
+        if x.dtype == torch.int32 and bool(((x >= 0) | (x == -1)).all()):
+            xl, lib_words = x, "int32"
+        pad = -1 if x.dtype == torch.int32 else UMAX
+        run_k = lambda: sort.sort_rows_u32(x)
+        run_p = lambda: sort.sort_rows_u32_plain(x)
+        # 4-byte keys read once and written once; one operation a key
+        # (no design-free count of a sort's operations)
+        record("sort", site, [R, n], [run_k()], [run_p()], run_k, run_p,
+               nbytes=R * n * 8, nops=R * n,
+               fn_lib=lambda: torch.sort(xl, dim=-1),
+               words=str(x.dtype).replace("torch.", ""),
+               library_words=lib_words,
+               real_share=float((x != pad).float().mean()),
+               **extra)
+
+
+def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
+    from fastani_tpu_torch.config import Parameters, scale_caps
+    from fastani_tpu_torch.ops import cuda as kc
+
+    dev = torch.device("cuda")
+    p = Parameters().finalize()
+    scale_caps(N_GENOMES, p)
+    B, scap = p.frag_batch, p.sketch_cap
+    U = min(512, B)                               # L2 chunk of units
+    results = {}
+
+    record, record_fold = kernel_recorders(torch, results)
+
     # K1-K3, the fold, E1 and E2 on the inputs of their call sites;
     # launches on mid per site (E1's and E2's: mid's own, once a chunk)
     sites, cap_batches, event_runs = capture_sites(torch, mid_paths)
@@ -887,159 +1098,13 @@ def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
 
     murmur = murmur_sass_ops(kc)
     for (kernel, site), v in sorted(sites.items()):
-        a, kw = v["args"], v["kw"]
-        n_mid = launches[(kernel, site)]
-        if kernel == "winnow":
-            rows, ctg, base, tl, k, w = a
-            R, W = rows.shape
-            seg = W - (w - 1) - (k - 1)
-            run_k = lambda: winnow.winnow_rows(rows, ctg, base, tl, k, w)
-            run_p = lambda: winnow.winnow_rows_plain(rows, ctg, base, tl, k,
-                                                     w)
-            # the row-per-block kernel's formula: int64 hashes out (9
-            # bytes a position); per position two murmur3 (~72 32-bit ops
-            # each), packing two k-byte keys (4k), the w-long window scan
-            old_ms, old_by = bound(
-                rows.numel() + 12 * R + 9 * R * seg,
-                R * (W - k + 1) * (2 * 72 + 4 * k) + R * seg * 2 * w)
-            record("winnow", site, [R, W], list(run_k()), list(run_p()),
-                   run_k, run_p,
-                   # the rows and (ctg, base, len) read, 1-byte emits and
-                   # 4-byte hashes written; two murmur3 a k-mer start
-                   nbytes=rows.numel() + 12 * R + 5 * R * seg,
-                   nops=R * (W - k + 1) * 2 * murmur["ops"],
-                   plain_reps=1, launches_mid=n_mid,
-                   bound_row_kernel_ms=old_ms, bound_row_kernel_by=old_by,
-                   murmur_sass=murmur,
-                   tiles=list(winnow.tile_geometry(seg)))
-        elif kernel == "fold":
-            # the main path's finalize: the read-only fold on the rows it
-            # folds (the table's row since PR 10), then the fused form
-            tab, _, _, fin, ranges, n_slots = a
-            rows = kw.get("rows")
-            rows = tab[fin % n_slots] if rows is None else rows
-            fold_k = record_fold(site, rows, ranges, launches_mid=n_mid)
-            run_fin, want = finalize_case(torch, a, kw)
-            err = max(max_abs_err(torch, run_fin(form), want)
-                      for form in ("fused", "composition"))
-            if err != 0:
-                raise AssertionError(f"fold at {site}: the fused finalize or "
-                                     f"the composition differs from "
-                                     f"finalize_rows_plain (max abs err "
-                                     f"{err})")
-            ms = {form: time_ms(torch, lambda f=form: run_fin(f), 20,
-                                graph=True)
-                  for form in ("restore", "fused", "composition")}
-            FIN, B_tot = rows.shape
-            Gr = ranges.shape[1]
-            # the rows read and cleared once, the accumulators' FIN x Gr
-            # elements read and written once, the ranges and qnos read
-            b_ms, b_by = bound(8 * FIN * B_tot + 16 * FIN * Gr + 8 * Gr
-                               + 8 * FIN, 2 * FIN * B_tot)
-            emit({"phase": "kernel", "name": "fold",
-                  "site": f"{site} fused", "shape": [FIN, B_tot, Gr],
-                  "n_slots": n_slots, "rows_given": kw.get("rows") is not None,
-                  "max_abs_err": err, "restore_ms": ms["restore"],
-                  "fused_ms": ms["fused"] - ms["restore"],
-                  "composition_ms": ms["composition"] - ms["restore"],
-                  "fused_with_restore_ms": ms["fused"],
-                  "composition_with_restore_ms": ms["composition"],
-                  "fold_rows_ms": fold_k["kernel_ms"], "bound_ms": b_ms,
-                  "bound_by": b_by, "launches_mid": n_mid})
-        elif kernel == "events":
-            qh, frag, u_sid, b0, mi_hash = a[0], a[2], a[3], a[5], a[7]
-            ncap = a[13]
-            U, scap, M = u_sid.shape[0], qh.shape[1], mi_hash.shape[0]
-            T = 2 * ncap + 1
-            # the distinct entries of the units' windows and sketch rows,
-            # each read once; the (U, T) keys and records and five
-            # per-unit words written once
-            b0c = b0.clamp(0, M - ncap)
-            entries = int(torch.unique(
-                b0c[:, None] + torch.arange(ncap, device=dev)).numel())
-            n_rows = int(torch.unique(frag).numel())
-            run_k = lambda: l2walk.events(*a, **kw)
-            run_p = lambda: l2walk.events_plain(*a, **kw)
-            record("events", site, [U, T, scap],
-                   tensors_of(torch, run_k()), tensors_of(torch, run_p()),
-                   run_k, run_p,
-                   nbytes=(entries * sum(x.element_size() for x in a[7:12])
-                           + n_rows * (scap + 1) * 8 + U * 29
-                           + 8 * U * T + 17 * U),
-                   nops=U * ncap * (4 * (scap + 1).bit_length()
-                                    + EVENTS_OPS_PER_ENTRY),
-                   launches_mid=n_mid, distinct_entries=entries,
-                   sketch_rows=n_rows)
-        elif kernel == "events_scan":
-            keys = a[0]
-            U, T = keys.shape
-            run_k = lambda: l2walk.events_scan(*a, **kw)
-            run_p = lambda: l2walk.events_scan_plain(*a, **kw)
-            got_k = tensors_of(torch, run_k())
-            # the sorted keys and records read once, 13 bytes a unit; the
-            # six (U, T) rows and n_ev written once
-            record("events_scan", site, [U, T], got_k,
-                   tensors_of(torch, run_p()), run_k, run_p,
-                   nbytes=8 * U * T + 13 * U + 24 * U * T + 4 * U,
-                   nops=U * T * EVENTS_SCAN_OPS_PER_EVENT,
-                   launches_mid=n_mid,
-                   n_ev_mean=float(got_k[-1].float().mean()))
-        elif kernel == "compact":
-            flags, pays = a[0], a[1]
-            width = kw.get("width", a[2] if len(a) > 2 else flags.shape[1])
-            R, n = flags.shape
-            # the flag bytes, one word per payload at each flagged position
-            # below the width, the (R, width) outputs written once
-            moved = int(flags.sum(dim=1).clamp(max=width).sum())
-            run_k = lambda: compact.compact_rows(flags, pays, width)
-            run_p = lambda: compact.compact_rows_plain(flags, pays, width)
-            record("compact", site, [R, n, len(pays)], list(run_k()),
-                   list(run_p()), run_k, run_p,
-                   nbytes=R * n + sum(x.element_size() * (moved + R * width)
-                                      for x, _ in pays),
-                   nops=R * n, width=width,
-                   words=[str(x.dtype).replace("torch.", "") for x, _ in pays],
-                   flag_share=float(flags.float().mean()),
-                   launches_mid=n_mid)
-        else:
-            x = a[0]
-            R, n = x.shape
-            # torch.sort over the same int32 words where every key is below
-            # 2^31 (UMAX pads, -1, sort first there: the time is the
-            # yardstick), else over u32 values in int64 words
-            lib_words = "int64"
-            xl = x if x.dtype == torch.int64 else (x.to(torch.int64) & UMAX)
-            if x.dtype == torch.int32 and bool(((x >= 0) | (x == -1)).all()):
-                xl, lib_words = x, "int32"
-            pad = -1 if x.dtype == torch.int32 else UMAX
-            run_k = lambda: sort.sort_rows_u32(x)
-            run_p = lambda: sort.sort_rows_u32_plain(x)
-            # 4-byte keys read once and written once; one operation a key
-            # (no design-free count of a sort's operations)
-            record("sort", site, [R, n], [run_k()], [run_p()], run_k, run_p,
-                   nbytes=R * n * 8, nops=R * n,
-                   fn_lib=lambda: torch.sort(xl, dim=-1),
-                   words=str(x.dtype).replace("torch.", ""),
-                   library_words=lib_words,
-                   real_share=float((x != pad).float().mean()),
-                   launches_mid=n_mid)
+        time_site(torch, record, record_fold, kernel, site, v["args"],
+                  v["kw"], murmur, launches_mid=launches[(kernel, site)])
     del sites
 
     # K4 key-value sort at the L2 event merge's shape
-    def n_cmp(R, n):
-        N = 1 << (n - 1).bit_length()
-        lg = N.bit_length() - 1
-        return R * (N // 2) * lg * (lg + 1) // 2
-
-    kv_keys, kv_pay = kv_inputs(torch, dev)
-    Uk, T = kv_keys.shape
-    record("sort_kv", "L2 events", [Uk, T],
-           list(sort.sort_rows_u32_kv(kv_keys, kv_pay)),
-           list(sort.sort_rows_u32_kv_plain(kv_keys, kv_pay)),
-           lambda: sort.sort_rows_u32_kv(kv_keys, kv_pay),
-           lambda: sort.sort_rows_u32_kv_plain(kv_keys, kv_pay),
-           nbytes=Uk * T * 16, nops=n_cmp(Uk, T) * 2,
-           fn_lib=lambda: torch.sort(kv_keys, dim=-1, stable=True))
+    time_site(torch, record, record_fold, "sort_kv", "L2 events",
+              kv_inputs(torch, dev), {}, murmur)
 
     # K5 walk: real event streams at the main path's chunk (U 512, scap
     # 320) and at U 4096; bound from the bytes these streams need read once
@@ -1048,15 +1113,8 @@ def check_kernels(torch, np, mid_paths, mid_batches, mid_launches):
     if s_cap != scap:
         raise AssertionError(f"stream scap {s_cap} != {scap}")
     for Uw, (ev, s_u, n_ev) in streams.items():
-        n_sum = float(n_ev.sum())
-        record("walk", f"U {Uw}", [Uw, ev["dn"].shape[1], scap],
-               list(l2walk.walk(ev, s_u, n_ev, scap)),
-               list(l2walk.walk_plain(ev, s_u, n_ev, scap)),
-               lambda: l2walk.walk(ev, s_u, n_ev, scap),
-               lambda: l2walk.walk_plain(ev, s_u, n_ev, scap),
-               nbytes=n_sum * 24 + Uw * 20,
-               nops=n_sum * WALK_OPS_PER_EVENT, reps=20, plain_reps=1,
-               n_ev_mean=n_sum / Uw, n_ev_max=int(n_ev.max()))
+        time_site(torch, record, record_fold, "walk", f"U {Uw}",
+                  (ev, s_u, n_ev, scap), {}, murmur)
     # the fold at FIN 4 against 32 reference genomes, the last stretched
     # to 1008, 2000 and 4000 bins; the cost of a step of the chain
     synth = [record_fold(f"{longest} bins", rows, ranges)
@@ -2220,6 +2278,58 @@ def build_workload(np, workdir: pathlib.Path, n_genomes: int, size: int):
     return paths
 
 
+def build_clustered(np, workdir: pathlib.Path, n_genomes: int, size: int,
+                    clusters: int, seed: int = 1234):
+    """scripts/run_scale1000.py's generator: ``clusters`` unrelated random
+    genomes, each the base of ceil(n / clusters) strains with 1%..5%
+    substitutions and small indels (genome i is g{i}.fa, in cluster
+    i // per).  Files already in ``workdir`` are kept, as that script
+    keeps them."""
+    paths = [workdir / f"g{i}.fa" for i in range(n_genomes)]
+    if all(p.exists() and p.stat().st_size > size for p in paths):
+        return [str(p) for p in paths]
+    rng = np.random.default_rng(seed)
+    per = -(-n_genomes // clusters)
+    i = 0
+    for _ in range(clusters):
+        base = genome_bytes(np, rng, size)
+        for j in range(min(per, n_genomes - i)):
+            g = mutate_genome(np, rng, base,
+                              0.01 + 0.04 * (j / max(per - 1, 1)),
+                              indel_rate=0.0002)
+            write_fasta(paths[i], [(f"g{i}", g)])
+            i += 1
+    return [str(p) for p in paths]
+
+
+def build_draft_panel(np, workdir: pathlib.Path, seed: int = 2101,
+                      big: int = 2_000_000, n_small: int = 2100,
+                      small: int = 20, query_bp: int = 150_000):
+    """References whose L1 hit keys overflow 32 bits: a draft assembly of
+    ``n_small`` random contigs of ``small`` bases and then one contig of
+    ``big`` bases, and a strain of that contig's last ``query_bp`` bases
+    (3% substitutions, small indels).  Every contig counts a seqId, so
+    the seqIds up to 2101 need 12 bits beside the 21 of the positions
+    (``MapperConfig.from_params``: ``wpos_bits`` None, the int64 key
+    route), and the hits on the last two seqIds have keys above 2^32.
+    Contigs of ``small`` bases above the window put index entries on every
+    seqId, as a real draft assembly does; shorter ones give no index rows
+    (an index build row each: cheap on the card, slow on one CPU thread).
+    The query genome is that last stretch with 2% substitutions and small
+    indels.  Returns ([draft path, strain path], query path)."""
+    rng = np.random.default_rng(seed)
+    base = genome_bytes(np, rng, big)
+    tail = base[-query_bp:]
+    contigs = [(f"c{i}", genome_bytes(np, rng, small))
+               for i in range(n_small)] + [("big", base)]
+    refs = [workdir / "draft.fa", workdir / "strain.fa"]
+    query = workdir / "draft_query.fa"
+    write_fasta(refs[0], contigs)
+    write_fasta(refs[1], [("s", mutate_genome(np, rng, tail, 0.03, 0.0003))])
+    write_fasta(query, [("q", mutate_genome(np, rng, tail, 0.02, 0.0003))])
+    return [str(r) for r in refs], str(query)
+
+
 def run_main_path(torch, np, n_genomes: int, size: int):
     """Returns (launches, genome paths, batches, the phase's line, the
     run's stats); the genomes stay in .smokework/mid for phase 4."""
@@ -2286,6 +2396,301 @@ def run_main_path(torch, np, n_genomes: int, size: int):
     return launches, paths, stats["batches"], row, stats
 
 
+# ---------------------------------------------------------------------------
+# phase scale: the main path at the JAX package's own scale
+# ---------------------------------------------------------------------------
+
+QUICK = (8, 1_000_000)            # bench.py's quick: 8 genomes x 1 Mbp
+FULL = (100, 3_000_000)           # bench.py's full: 100 genomes x 3 Mbp
+# scripts/run_scale1000.py: 1000 genomes x 1 Mbp in 20 clusters of 50
+SCALE1000 = (1000, 1_000_000, 20)
+# the query genomes of the fast/exact subset and of the site-checked run
+SUBSET_QUERIES = 8
+# the 64-bit key panel's short contigs: above the window, as a draft
+# assembly's are
+DRAFT_CONTIG_BP = 200
+# the scale sites timed for the kernels table (the others are mid's
+# shapes): (kernel, site label)
+SCALE_TIMED = (("sort", "L1 hits"), ("compact", "L1 leaders"),
+               ("compact", "valid units"), ("fold", "finalize"),
+               ("events", "L2 events"), ("sort_kv", "L2 events"),
+               ("events_scan", "L2 events"), ("walk", "L2 walk"))
+
+
+def scale_line(torch, run: str, stats: dict, wall: float, n_pairs: int,
+               launches: dict) -> dict:
+    """One scale run's line: wall, pairs/s, phase seconds, peak device
+    bytes, graphs and batches, caps, the counters' maxima, fallback and
+    redone work, every kernel's launches (counted from 0 before it)."""
+    return {"phase": "scale", "run": run, "pairs": n_pairs, "wall_s": wall,
+            "pairs_per_s": n_pairs / wall,
+            **{f"{k}_s": stats.get(k) for k in (
+                "t_index_build", "t_mapper_init", "t_autotune", "t_map_fold",
+                "t_map", "t_fold", "t_write")},
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            **graph_numbers(stats), "batches": stats["batches"],
+            "hits_cap_static": stats.get("hits_cap_static"),
+            "hits_cap": stats.get("hits_cap"),
+            "counters_max": {k: stats[k] for k in (
+                "max_hits", "max_groups", "max_s", "max_span", "n_units")},
+            "fallback_frags": stats["fallback_frags"],
+            "oracle_frags": stats["oracle_frags"],
+            "redone_queries": stats.get("redone_queries"),
+            "launches": launches}
+
+
+def scale_whole(torch, tag: str, wd: pathlib.Path, paths: list):
+    """A panel all against all through the CLI's fast path (``--matrix``,
+    graphs on): every kernel launched, no batch eager, 0 fallback
+    fragments.  Returns (its line, its TSV rows, the TSV's path)."""
+    from fastani_tpu_torch.ops import cuda as kc
+
+    lst = wd / "genomes.txt"
+    lst.write_text("\n".join(paths) + "\n")
+    n = len(paths)
+    out = wd / "all.txt"
+    stats = {}
+    kc.reset_launches()
+    wall = timed_cli(torch, ["--ql", str(lst), "--rl", str(lst), "-o",
+                             str(out), "--matrix"], stats)
+    row = scale_line(torch, f"{tag} fast", stats, wall, n * n,
+                     dict(kc.LAUNCHES))
+    rows = tsv_rows(out)
+    row.update(tsv_rows=len(rows), matrix_lines=len(pathlib.Path(
+        f"{out}.matrix").read_text().splitlines()))
+    emit(row)
+    missing = [k for k, v in row["launches"].items() if v <= 0]
+    if missing:
+        raise AssertionError(f"{tag}: kernels not launched: {missing}")
+    events_at_k4(tag, row["launches"])
+    if stats["fallback_frags"] or row["matrix_lines"] != n + 1:
+        raise AssertionError(f"{tag}: {stats['fallback_frags']} fragments "
+                             f"fell back, {row['matrix_lines']} matrix lines")
+    no_eager_batches(tag, stats)
+    return row, rows, out
+
+
+def scale_panel(torch, tag: str, wd: pathlib.Path, paths: list):
+    """``scale_whole``, then the panel's first SUBSET_QUERIES query genomes
+    against all: the fast path eagerly with every kernel's wrapper wrapped
+    (``kernel_sites``) and the exact path (``--exact``), each TSV
+    byte-equal to the whole run's lines of those queries; every kernel
+    held bit-equal to its plain version at each call site of the eager
+    run (``check_sites``).  Returns (the whole run's line, its TSV rows,
+    ``site_labels`` of the eager run, that run's batches)."""
+    from fastani_tpu_torch.ops import cuda as kc
+
+    row, rows, out = scale_whole(torch, tag, wd, paths)
+    lst = wd / "genomes.txt"
+    n = len(paths)
+    sub = first_queries(wd, SUBSET_QUERIES)
+    want = tsv_of_queries(out, sub)
+    stats = {}
+    kc.reset_launches()
+    with kernel_sites(torch, kc.KERNELS, shapes_per_site=3) as seen:
+        wall = timed_cli(torch, ["--ql", sub, "--rl", str(lst), "-o",
+                                 str(wd / "sub_fast.txt")], stats)
+    launches = dict(kc.LAUNCHES)
+    same = [(wd / "sub_fast.txt").read_bytes() == want]
+    sub_row = scale_line(torch, f"{tag} first {SUBSET_QUERIES} fast eager",
+                         stats, wall, SUBSET_QUERIES * n, launches)
+    sub_batches = stats["batches"]
+    stats = {}
+    wall = timed_cli(torch, ["--ql", sub, "--rl", str(lst), "-o",
+                             str(wd / "sub_exact.txt"), "--exact"], stats)
+    same.append((wd / "sub_exact.txt").read_bytes() == want)
+    emit({**sub_row, "byte_equal_whole_run": same[0]})
+    emit({**scale_line(torch, f"{tag} first {SUBSET_QUERIES} exact", stats,
+                       wall, SUBSET_QUERIES * n, {}),
+          "byte_equal_whole_run": same[1]})
+    if not all(same) or not want:
+        raise AssertionError(f"{tag}: the first {SUBSET_QUERIES} queries' "
+                             f"fast and exact TSVs against the whole run's "
+                             f"lines: {same}")
+    check_sites(torch, f"{tag} first {SUBSET_QUERIES}", seen, launches)
+    return row, rows, site_labels(seen), sub_batches
+
+
+def time_scale_sites(torch, tag: str, sites: dict, batches: int,
+                     whole: dict, results: dict, murmur: dict) -> None:
+    """Kernel lines (``time_site``) at a panel's SCALE_TIMED sites, on the
+    first input each got in the eager subset run; ``launches_whole`` is the
+    site's launches in the whole run: for L1 and the unit compaction
+    worked out, the subset's calls a batch (a whole number, else the
+    phase fails) times the whole run's batches; for the rest counted, the
+    kernel's launches less the mapper's warm-up (all their calls are that
+    site's)."""
+    record, record_fold = kernel_recorders(torch, results)
+    warm = whole["warmup_launches"]
+    for kernel, label in SCALE_TIMED:
+        v = sites[(kernel, label)]
+        if kernel in ("sort", "compact"):
+            if v["calls"] % batches:
+                raise AssertionError(f"{tag}: {kernel} at {label}: "
+                                     f"{v['calls']} calls in {batches} "
+                                     f"batches")
+            n = v["calls"] // batches * whole["batches"]
+        else:
+            n = whole["launches"][kernel] - warm.get(kernel, 0)
+        (a, kw), = map_tensors(torch, lambda x: x.to("cuda"), v["inputs"][:1])
+        time_site(torch, record, record_fold, kernel, f"{tag} {label}", a, kw,
+                  murmur, launches_whole=n, launches_subset=v["launches"])
+        del a, kw
+
+
+def site_width(sites: dict, kernel: str, label: str) -> int:
+    """The width of a site's first input (its first argument's last
+    dimension; the compaction's ``width`` keyword where given)."""
+    (a, kw), = sites[(kernel, label)]["inputs"][:1]
+    return kw["width"] if "width" in kw else a[0].shape[-1]
+
+
+def run_int64_route(torch, np) -> dict:
+    """``build_draft_panel`` with DRAFT_CONTIG_BP contigs through the CLI's
+    fast path on the card and on the CPU: L1 hit keys past 32 bits
+    (``wpos_bits`` None, L1's sort by ``torch.sort``) on every seqId, the
+    same rows, equal counts, ANI within 1e-3."""
+    from fastani_tpu_torch import cli
+    from fastani_tpu_torch.models import pipeline
+    from fastani_tpu_torch.ops import cuda as kc
+
+    wd = WORK / "draft"
+    wd.mkdir(parents=True, exist_ok=True)
+    refs, query = build_draft_panel(np, wd, small=DRAFT_CONTIG_BP)
+    (wd / "refs.txt").write_text("\n".join(refs) + "\n")
+    mappers, make = [], pipeline._make_mapper
+    pipeline._make_mapper = lambda *a: mappers.append(make(*a)) or mappers[-1]
+    runs = {}
+    try:
+        for device in ("cuda", "cpu"):
+            stats = {}
+            torch.cuda.synchronize()
+            kc.reset_launches()
+            t0 = time.time()
+            rc = cli.main(["-q", query, "--rl", str(wd / "refs.txt"), "-o",
+                           str(wd / f"{device}.txt"), "--device", device],
+                          stats=stats)
+            torch.cuda.synchronize()
+            if rc != 0:
+                raise AssertionError(f"int64 route: the CLI exited with {rc}")
+            runs[device] = {"wall_s": time.time() - t0,
+                            "launches": dict(kc.LAUNCHES),
+                            "fallback_frags": stats["fallback_frags"],
+                            "max_hits": stats["max_hits"]}
+    finally:
+        pipeline._make_mapper = make
+    cfg, t = mappers[0].cfg, mappers[0].tables
+    dev = same_rows(tsv_rows(wd / "cuda.txt"), tsv_rows(wd / "cpu.txt"),
+                    "int64 route")
+    keys = t.occ_keys[: t.n_occ]
+    contigs = len(mappers[0].index.metadata)
+    row = {"phase": "scale", "run": "int64 keys", "contigs": contigs,
+           "contig_bp": DRAFT_CONTIG_BP, "wpos_bits": cfg.wpos_bits,
+           "key_dtype": str(keys.dtype),
+           "seqids_keyed": int((keys >> 32).unique().numel()),
+           "max_key": int(keys.max()), "rows": len(tsv_rows(wd / "cuda.txt")),
+           "max_ani_diff_vs_cpu": dev, "card": runs["cuda"],
+           "cpu": runs["cpu"]}
+    emit(row)
+    shutil.rmtree(wd, ignore_errors=True)
+    if cfg.wpos_bits is not None or keys.dtype != torch.int64 or \
+            row["max_key"] < 1 << 32 or row["seqids_keyed"] != contigs or \
+            not row["rows"]:
+        raise AssertionError(f"int64 route: wpos_bits {cfg.wpos_bits}, keys "
+                             f"{keys.dtype} up to {row['max_key']} on "
+                             f"{row['seqids_keyed']} of {contigs} seqIds, "
+                             f"{row['rows']} rows")
+    return row
+
+
+def run_scale(torch, np) -> dict:
+    """Phase scale: bench.py's ``quick`` (QUICK, seed 123; the whole run
+    only), its ``full`` (FULL) and the clustered
+    1000-genome all-vs-all (SCALE1000, seed 1234) through ``scale_panel``,
+    the latter also against ``scripts/torch_scale1000.py``'s run (its
+    per-cluster caps; same rows, equal counts, ANI within 1e-3), each
+    panel's new call sites timed (``time_scale_sites``), then the int64
+    key route (``run_int64_route``).  Returns {"full", "scale1000"}: each
+    whole run's kernel launches."""
+    import importlib.util
+
+    from fastani_tpu_torch.ops import cuda as kc
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_scale1000", ROOT / "scripts" / "torch_scale1000.py")
+    torch_scale1000 = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(torch_scale1000)
+    murmur = murmur_sass_ops(kc)
+    results = {}
+    n, size = QUICK
+    wd = WORK / "quick"
+    wd.mkdir(parents=True, exist_ok=True)
+    _, rows, _ = scale_whole(torch, "quick", wd,
+                             build_workload(np, wd, n, size))
+    shutil.rmtree(wd, ignore_errors=True)
+    if len(rows) != n * n:
+        raise AssertionError(f"quick: {len(rows)} TSV rows of {n * n}")
+
+    n, size = FULL
+    wd = WORK / "full"
+    wd.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    paths = build_workload(np, wd, n, size)
+    emit({"phase": "scale_workload", "run": "full", "genomes": n,
+          "genome_bp": size, "seed": 123, "gen_s": time.time() - t0})
+    full, rows, sites, batches = scale_panel(torch, "full", wd, paths)
+    widths = {"L1 hits": site_width(sites, "sort", "L1 hits"),
+              "L1 leaders": site_width(sites, "compact", "L1 leaders")}
+    emit({"phase": "scale_sites", "run": "full", "widths": widths})
+    if len(rows) != n * n or widths["L1 hits"] <= 16384 or \
+            widths["L1 leaders"] != 256:
+        raise AssertionError(f"full: {len(rows)} TSV rows of {n * n}, L1 "
+                             f"site widths {widths}")
+    time_scale_sites(torch, "full", sites, batches, full, results, murmur)
+    del sites
+    shutil.rmtree(wd, ignore_errors=True)
+
+    n, size, clusters = SCALE1000
+    per = -(-n // clusters)
+    wd = WORK / "scale1000"
+    wd.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    paths = build_clustered(np, wd, n, size, clusters)
+    emit({"phase": "scale_workload", "run": "scale1000", "genomes": n,
+          "genome_bp": size, "clusters": clusters, "seed": 1234,
+          "gen_s": time.time() - t0})
+    big, rows, sites, batches = scale_panel(torch, "scale1000", wd, paths)
+    gid = {p: i for i, p in enumerate(paths)}
+    same = {(q, r) for q, r in rows if gid[q] // per == gid[r] // per}
+    fold_gr = sites[("fold", "finalize")]["inputs"][0][0][4].shape[1]
+    widths = {"valid units": site_width(sites, "compact", "valid units"),
+              "fold genomes": fold_gr}
+    emit({"phase": "scale_sites", "run": "scale1000", "widths": widths,
+          "same_cluster_rows": len(same), "other_rows": len(rows) - len(same)})
+    if len(same) != n * per or widths != {"valid units": 524288,
+                                          "fold genomes": n}:
+        raise AssertionError(f"scale1000: {len(same)} same-cluster rows of "
+                             f"{n * per}, site widths {widths}")
+    time_scale_sites(torch, "scale1000", sites, batches, big, results,
+                     murmur)
+    del sites
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    script = torch_scale1000.run(paths, clusters, tsv=str(wd / "script.txt"))
+    script_rows = tsv_rows(wd / "script.txt")
+    dev = same_rows(script_rows, rows, "scale1000 script against the CLI")
+    emit({"phase": "scale", "run": "scale1000 script", **script,
+          "wall_s": time.time() - t0, "tsv_rows": len(script_rows),
+          "max_ani_diff_vs_cli": dev})
+    if script["fallback_frags"]:
+        raise AssertionError(f"scale1000 script: {script['fallback_frags']} "
+                             f"fragments fell back")
+    shutil.rmtree(wd, ignore_errors=True)
+    run_int64_route(torch, np)
+    return {"full": full["launches"], "scale1000": big["launches"]}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2327,6 +2732,7 @@ def main() -> int:
     # phase 4 counts the batches' launches, as the eager capture makes them
     kernels = check_kernels(torch, np, paths, batches,
                             less_warmup(launches, fast_stats))
+    launches_scale = run_scale(torch, np)
 
     table = []
     for name in kc.KERNELS:
@@ -2337,6 +2743,8 @@ def main() -> int:
                       "launches_mesh": launches_mesh[name],
                       "launches_profile": launches_profile[name],
                       "launches_step": launches_step[name],
+                      "launches_full": launches_scale["full"][name],
+                      "launches_scale1000": launches_scale["scale1000"][name],
                       "max_abs_err": r["max_abs_err"],
                       "max_abs_err_mesh": mesh_sites[name]["max_abs_err"],
                       "max_abs_err_step": step_sites.get(

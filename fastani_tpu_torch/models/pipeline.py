@@ -553,9 +553,13 @@ def autotune_hits_cap(mapper: "jitmap.Mapper", stream: FragmentStream,
 def tuned_mapper(mapper: "jitmap.Mapper", stream: FragmentStream,
                  params: Parameters, stats: dict, log) -> "jitmap.Mapper":
     """``autotune_hits_cap``, logged, with the static and the tuned cap in
-    ``stats["hits_cap_static"]`` and ``stats["hits_cap"]``."""
+    ``stats["hits_cap_static"]`` and ``stats["hits_cap"]``, and its
+    seconds (synchronised) in ``stats["t_autotune"]``."""
     stats["hits_cap_static"] = mapper.cfg.hits_cap
+    t0 = time.time()
     mapper = autotune_hits_cap(mapper, stream, params)
+    _sync(mapper.index.device)
+    stats["t_autotune"] = time.time() - t0
     stats["hits_cap"] = mapper.cfg.hits_cap
     log(f"INFO, fastani_tpu_torch, hits_cap auto-tuned to "
         f"{stats['hits_cap']} (static {stats['hits_cap_static']})")

@@ -3,11 +3,15 @@
 one card.
 
     python3 scripts/torch_host_split.py [--tree DIR] [--queries 8] [--eager]
-                                        [--out FILE]
+                                        [--workload mid] [--out FILE]
 
-bench.py's mid workload (``chip_smoke.build_workload``, seed 123: 32
-genomes x 3 Mbp) is written, then its first ``--queries`` query genomes
-are mapped against all 32 through the CLI's fast path with ``--profile``
+A workload is written, by ``--workload``: bench.py's mid
+(``chip_smoke.build_workload``, seed 123: 32 genomes x 3 Mbp), its
+``full`` (the same generator, ``chip_smoke.FULL``: 100 x 3 Mbp) or the
+clustered 1000-genome panel (``chip_smoke.build_clustered``,
+``chip_smoke.SCALE1000``: 20 clusters of 50 x 1 Mbp, seed 1234); then its
+first ``--queries`` query genomes are mapped against all of it through
+the CLI's fast path with ``--profile``
 (as ``chip_smoke.py``'s ``profile`` phase does), with the package of
 ``--tree`` (default: this checkout; give an unpacked older commit to
 measure it).  Each of these functions, where the tree has it, runs inside
@@ -173,6 +177,8 @@ def main() -> int:
     ap.add_argument("--tree", default=str(ROOT))
     ap.add_argument("--queries", type=int, default=8)
     ap.add_argument("--eager", action="store_true")
+    ap.add_argument("--workload", default="mid",
+                    choices=("mid", "full", "scale1000"))
     ap.add_argument("--out", default="")
     a = ap.parse_args()
 
@@ -196,8 +202,12 @@ def main() -> int:
     kc.build_all()
     wd = tree / ".smokework" / "host_split"
     wd.mkdir(parents=True, exist_ok=True)
-    paths = chip_smoke.build_workload(np, wd, chip_smoke.N_GENOMES,
-                                       chip_smoke.GENOME_BP)
+    if a.workload == "scale1000":
+        paths = chip_smoke.build_clustered(np, wd, *chip_smoke.SCALE1000)
+    else:
+        paths = chip_smoke.build_workload(np, wd, *(
+            chip_smoke.FULL if a.workload == "full" else
+            (chip_smoke.N_GENOMES, chip_smoke.GENOME_BP)))
     (wd / "refs.txt").write_text("\n".join(paths) + "\n")
     (wd / "queries.txt").write_text("\n".join(paths[:a.queries]) + "\n")
     wrapped = wrap_ranges(torch, {"pipeline": pipeline, "jitmap": jitmap,
@@ -222,7 +232,8 @@ def main() -> int:
     summary = summarize(chip_smoke, stats["profile_trace"], stats["batches"])
     row = {"tree": str(tree), "eager": a.eager, "nvidia_smi": smi,
            "torch": torch.__version__, "cuda": torch.version.cuda,
-           "queries": a.queries, "genomes": chip_smoke.N_GENOMES,
+           "workload": a.workload, "queries": a.queries,
+           "genomes": len(paths),
            "batches": stats["batches"], "wall_s": wall,
            "t_map_fold_s": stats["t_map_fold"],
            "t_trace_read_s": time.time() - t0, "ranges_wrapped": wrapped,

@@ -169,6 +169,40 @@ def test_sort_kernels_match_plain(cuda_device, n):
             sort.sort_rows_u32_kv(x, p)           # int64 words on the card
 
 
+def test_sort_kernel_on_real_l1_rows_past_16384(cuda_device, tmp_path,
+                                                monkeypatch):
+    """K3 at the L1 site past 16384 keys (``sort_rows_radix_kernel<32>``)
+    on real hit rows that are mostly real keys, as full's are: bench.py's
+    generator at 100 genomes x 30 kbp (every genome related, as on full)
+    mapped at full's tuned hits_cap 19456 and cand_cap 256; the rows L1
+    hands K3, sorted by the kernel, bit-equal to ``torch.sort`` of the
+    same u32 values and to the plain version."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    import chip_smoke as cs
+    from fastani_tpu_torch.ops.xputils import UMAX
+
+    width = 19456
+    paths = cs.build_workload(np, tmp_path, 100, 30_000)
+    p = Parameters(ref_sequences=paths, frag_batch=256, hits_cap=width,
+                   cand_cap=256, sketch_cap=320, l2_entry_cap=1016).finalize()
+    mapper = jitmap.Mapper(p, ReferenceIndex.build_device(p, device=cuda_device),
+                           unit_factor=178, unit_chunk=512, graphs=False)
+    rows, orig = [], sort.sort_rows_u32
+    monkeypatch.setattr(sort, "sort_rows_u32", lambda x: (
+        rows.append(x.clone()) if x.shape[1] == width else None) or orig(x))
+    frags = np.concatenate([pipeline.load_query_fragments(q, p).frags
+                            for q in paths])[:256]
+    mapper.map_batch(torch.as_tensor(frags, device=cuda_device))
+    (x,) = rows
+    assert x.shape == (256, width) and x.dtype == torch.int32
+    # 64 % real keys on this panel (the CPU's map step, the same rows)
+    assert float((x != -1).sum(dim=1).float().mean()) > width / 2
+    got = orig(x)
+    want = torch.sort(x.to(torch.int64) & UMAX, dim=-1).values
+    _eq([got.to(torch.int64) & UMAX], [want])
+    _eq([got], [sort.sort_rows_u32_plain(x.cpu())])
+
+
 def _mutate(rng, seq, rate):
     acgt = np.frombuffer(b"ACGT", np.uint8)
     out = seq.copy()
