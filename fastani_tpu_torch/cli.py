@@ -104,8 +104,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "sketching (the reference file list comes from the "
                         "index, so -r is optional)")
     p.add_argument("--profile", dest="profile", default="",
-                   help="write a torch.profiler Chrome trace of the mapping "
-                        "phase into this directory (single-device runs)")
+                   help="write a torch.profiler Chrome trace of the whole "
+                        "job, index build to write, with the program's "
+                        "spans beside the kernels, into this directory as "
+                        "job.pt.trace.json (single-device runs)")
     p.add_argument("--mesh", default="",
                    help="run sharded on an RxQ grid, e.g. --mesh 2x4 (R "
                         "reference shards x Q slices of each fragment "

@@ -16,6 +16,12 @@ build: a piece with more than ``_CAP_R`` emits triggers a rebuild with the
 cap at the piece length, which cannot overflow, and an ``out_size`` too
 small for the entries is grown to fit (replaces skch::Sketch::build+index,
 winSketch.hpp:124-193).
+
+Spans (``utils/spans.py``): ``index.parse`` a reference file (the FASTA
+read, the uppercase and ``segment_rows``), ``index.flush`` a winnow launch
+(the upload, K1 and K2 enqueued) with ``index.overflow_read`` (the wait on
+its overflow flag) under it, ``index.assemble`` (step 4, the entry total's
+read and step 5), and ``index.rebuild`` around a rebuild.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from fastani_tpu_torch.config import Parameters
 from fastani_tpu_torch.io import fasta
 from fastani_tpu_torch.ops import compact, hashing, winnow
 from fastani_tpu_torch.ops.xputils import PINF, UMAX
+from fastani_tpu_torch.utils import spans
 
 _ROW = 1 << 10            # compaction piece length
 _CAP_R = _ROW // 4        # per-piece minimizer cap (density ~2/(w+1))
@@ -62,7 +69,8 @@ def build_device(cls, params: Parameters,
     if index.overflow:
         # a piece over the per-piece cap (degenerate repeats): rebuild with
         # the cap at the piece length, which cannot overflow
-        index = _build(cls, params, ref_files, device, _ROW)
+        with spans.span("index.rebuild"):
+            index = _build(cls, params, ref_files, device, _ROW)
     return index
 
 
@@ -82,24 +90,26 @@ def _build(cls, params, ref_files, device, cap: int):
         nonlocal overflow
         if not pend_rows:
             return
-        rows = torch.as_tensor(np.concatenate(pend_rows), device=device)
-        sid = np.concatenate(pend_sid)
-        as_t = lambda a: torch.as_tensor(np.concatenate(a), device=device)
-        base = as_t(pend_base)
-        emit, h = winnow.winnow_rows(rows, as_t(pend_sid), base,
-                                     as_t(pend_len), k, w)
-        wp = winnow.positions(base, _SEG, w)
-        per = _SEG // _ROW
-        e2 = emit.reshape(-1, _ROW)
-        cnt = e2.sum(dim=1)
-        # the hashes are int32 words; they widen to int64 u32 values only
-        # after compaction (~2/(w+1) of the positions)
-        hc, wc = compact.compact_rows(
-            e2, [(h.reshape(-1, _ROW), -1), (wp.reshape(-1, _ROW), PINF)],
-            width=cap)
-        pieces.append((hc.to(torch.int64) & UMAX, wc, cnt))
-        piece_sid.append(np.repeat(sid, per))
-        overflow |= bool((cnt > cap).any())
+        with spans.span("index.flush"):
+            rows = torch.as_tensor(np.concatenate(pend_rows), device=device)
+            sid = np.concatenate(pend_sid)
+            as_t = lambda a: torch.as_tensor(np.concatenate(a), device=device)
+            base = as_t(pend_base)
+            emit, h = winnow.winnow_rows(rows, as_t(pend_sid), base,
+                                         as_t(pend_len), k, w)
+            wp = winnow.positions(base, _SEG, w)
+            per = _SEG // _ROW
+            e2 = emit.reshape(-1, _ROW)
+            cnt = e2.sum(dim=1)
+            # the hashes are int32 words; they widen to int64 u32 values
+            # only after compaction (~2/(w+1) of the positions)
+            hc, wc = compact.compact_rows(
+                e2, [(h.reshape(-1, _ROW), -1), (wp.reshape(-1, _ROW), PINF)],
+                width=cap)
+            pieces.append((hc.to(torch.int64) & UMAX, wc, cnt))
+            piece_sid.append(np.repeat(sid, per))
+            with spans.span("index.overflow_read"):
+                overflow |= bool((cnt > cap).any())
         pend_rows.clear()
         pend_sid.clear()
         pend_base.clear()
@@ -107,24 +117,38 @@ def _build(cls, params, ref_files, device, cap: int):
 
     seq_counter = 0
     n_pend = 0
-    for path in files:
-        for name, seq in fasta.read_sequences(path):
-            L = len(seq)
-            metadata.append(ContigInfo(name, L))
-            if not (L < w or L < k):
-                rows, base = segment_rows(hashing.upper_np(seq), k, w)
-                if n_pend and n_pend + len(rows) > _FLUSH_ROWS:
-                    flush()
-                    n_pend = 0
-                pend_rows.append(rows)
-                pend_sid.append(np.full(len(rows), seq_counter, np.int32))
-                pend_base.append(base)
-                pend_len.append(np.full(len(rows), L, np.int32))
-                n_pend += len(rows)
-            seq_counter += 1
+    for i, path in enumerate(files):
+        # the file's contigs parsed and cut first, then queued for the
+        # flushes, so a flush never falls inside a file's parse
+        with spans.span("index.parse", file=i):
+            parsed = []
+            for name, seq in fasta.read_sequences(path):
+                L = len(seq)
+                metadata.append(ContigInfo(name, L))
+                if not (L < w or L < k):
+                    parsed.append((segment_rows(hashing.upper_np(seq), k, w),
+                                   seq_counter, L))
+                seq_counter += 1
+        for (rows, base), sid, L in parsed:
+            if n_pend and n_pend + len(rows) > _FLUSH_ROWS:
+                flush()
+                n_pend = 0
+            pend_rows.append(rows)
+            pend_sid.append(np.full(len(rows), sid, np.int32))
+            pend_base.append(base)
+            pend_len.append(np.full(len(rows), L, np.int32))
+            n_pend += len(rows)
         seq_by_file.append(seq_counter)
     flush()
+    with spans.span("index.assemble"):
+        return _assemble(cls, device, cap, w, metadata, seq_by_file, pieces,
+                         piece_sid, overflow)
 
+
+def _assemble(cls, device, cap: int, w: int, metadata, seq_by_file, pieces,
+              piece_sid, overflow: bool):
+    """Steps 4 and 5: the pieces' entries scattered into arrays padded to
+    ``out_size`` and sorted by hash; returns the index."""
     if pieces:
         h = torch.cat([p[0] for p in pieces])
         wp = torch.cat([p[1] for p in pieces])

@@ -11,7 +11,10 @@ Two parsers with these semantics: the native C++ one (``native``), which
 the oracle of the native one, which ``read_sequences`` runs only under the
 JAX package's switch ``FASTANI_TPU_NO_NATIVE``.  ``FASTANI_TRACE_READS``
 names a file to which each parsed path is appended (the JAX package's
-hook: tests check which genome files a process reads).
+hook: tests check which genome files a process reads).  Each parse also
+counts into the open job (``utils/spans.py``): ``fasta.parses``, also
+under the innermost open span (the parse's purpose), and
+``fasta.files``, the distinct paths parsed.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Iterator, List, Tuple
 import numpy as np
 
 from fastani_tpu_torch import native
+from fastani_tpu_torch.utils import spans
 
 
 def _open_bytes(path: str) -> bytes:
@@ -43,6 +47,8 @@ def read_sequences(path: str) -> Iterator[Tuple[str, np.ndarray]]:
     if trace:
         with open(trace, "a") as f:
             f.write(path + "\n")
+    spans.count("fasta.parses", by_span=True)
+    spans.distinct("fasta.files", path)
     if os.environ.get("FASTANI_TPU_NO_NATIVE"):
         yield from read_sequences_py(path)
         return

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from fastani_tpu_torch.ops import cuda, stats
+from fastani_tpu_torch.utils import spans
 
 
 def identity_lut_full(k: int, s_max: int) -> np.ndarray:
@@ -410,10 +411,12 @@ class StreamingCGI:
 
     def update(self, packed: torch.Tensor, n_valid) -> None:
         """Fold one batch's packed block; ``n_valid`` may be a 0-d device
-        tensor (the batch's ``counts[0]``), so nothing is read."""
-        update_tab(self._tab, packed, n_valid, self._gos, self._bin_start,
-                   self._lut, self.frag_len, self.n_slots, self.n_rg,
-                   self.frag_cap)
+        tensor (the batch's ``counts[0]``), so nothing is read.  Span
+        ``cgi.update``."""
+        with spans.span("cgi.update"):
+            update_tab(self._tab, packed, n_valid, self._gos,
+                       self._bin_start, self._lut, self.frag_len,
+                       self.n_slots, self.n_rg, self.frag_cap)
 
     def finalize_list(self, qnos: Sequence[int], peers=(),
                       reduce_max=None) -> None:
@@ -431,7 +434,7 @@ class StreamingCGI:
         nothing), then ``reduce_max``, which replaces a tensor in place by
         its max over the processes that run the shard's other cells.  The
         tables hold non-negative float32 bits or -1, so the max of the
-        int32 words is the max of the identities."""
+        int32 words is the max of the identities.  Span ``cgi.finalize``."""
         qnos = [int(q) for q in qnos]
         if len({q % self.n_slots for q in qnos}) != len(qnos):
             raise ValueError(f"finalize_list: query genomes {qnos} share a "
@@ -439,21 +442,22 @@ class StreamingCGI:
         if any(not 0 <= q < self.n_qg for q in qnos):
             raise ValueError(f"finalize_list: query genomes {qnos} outside "
                              f"[0, {self.n_qg})")
-        fin = torch.from_numpy(np.asarray(qnos, np.int64))
-        if self._tab.device.type == "cuda":
-            # pinned and non_blocking: a pageable copy waits for the device
-            fin = fin.pin_memory().to(self._tab.device, non_blocking=True)
-        rows = None
-        if peers or reduce_max is not None:
-            slots = fin % self.n_slots
-            rows = self._tab[slots]
-            for p in peers:
-                rows = torch.maximum(rows, p._tab[slots])
-                p._tab.index_fill_(0, slots, -1)
-            if reduce_max is not None:
-                reduce_max(rows)
-        finalize_rows(self._tab, self._counts, self._sums, fin,
-                      self._ranges, self.n_slots, rows=rows)
+        with spans.span("cgi.finalize"):
+            fin = torch.from_numpy(np.asarray(qnos, np.int64))
+            if self._tab.device.type == "cuda":
+                # pinned and non_blocking: a pageable copy waits for the device
+                fin = fin.pin_memory().to(self._tab.device, non_blocking=True)
+            rows = None
+            if peers or reduce_max is not None:
+                slots = fin % self.n_slots
+                rows = self._tab[slots]
+                for p in peers:
+                    rows = torch.maximum(rows, p._tab[slots])
+                    p._tab.index_fill_(0, slots, -1)
+                if reduce_max is not None:
+                    reduce_max(rows)
+            finalize_rows(self._tab, self._counts, self._sums, fin,
+                          self._ranges, self.n_slots, rows=rows)
 
     def result(self):
         return self._counts.cpu().numpy(), self._sums.cpu().numpy()

@@ -16,6 +16,14 @@ Between the stages the host reads one scalar a batch, the live unit
 count, to replay the chunk up to the last chunk with a valid unit (the
 JAX package's device-side ``while_loop`` bound: torch's ``CUDAGraph``
 has no conditional node).
+
+Spans (``utils/spans.py``) of a dispatched batch: ``batch.upload`` (with
+``batch.upload_wait``, the wait for a pinned input set's last copy),
+``batch.capture`` (the first batch on a card) and ``batch.n_live_read``;
+counter ``l2.event_slots`` (each chunk's units times its event row
+width, 2 x l2_entry_cap + 1), and, while tracing, ``l2.window_entries``
+(``window_entries``, under span ``l2.window_count``: the traced job's
+only device work that an untraced job does not run).
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import torch
 from fastani_tpu_torch.models import l2walk, mapping
 from fastani_tpu_torch.ops import compact, cuda, stats
 from fastani_tpu_torch.ops.xputils import PINF, UMAX
+from fastani_tpu_torch.utils import spans
 
 # the 11 entries of map_step_packed's counts vector, in order
 COUNT_NAMES = ("n_valid", "sk_overflow", "l1_overflow", "l2_overflow",
@@ -188,6 +197,29 @@ def n_chunks(cfg: MapperConfig, n_live: torch.Tensor) -> int:
     return -(-int(n_live) // cfg.unit_chunk)
 
 
+def window_entries(cfg: MapperConfig, bufs: dict) -> torch.Tensor:
+    """The index entries the live units' windows need, on the device: each
+    live unit's ``eL - b0``, at most ``l2_entry_cap``, summed."""
+    U = cfg.unit_cap
+    ent = (bufs["eL"][:U] - bufs["b0"][:U]).clamp(0, cfg.l2_entry_cap)
+    return torch.where(bufs["u_valid"][:U], ent, 0).sum()
+
+
+def live_chunks(cfg: MapperConfig, bufs: dict) -> int:
+    """``n_chunks`` of a batch whose ``stage_pre`` has run, the read of
+    ``n_live`` as span ``batch.n_live_read``, with the batch's L2 counters
+    (``l2.window_entries`` summed on the device while tracing)."""
+    if spans.tracing():
+        with spans.span("l2.window_count"):
+            spans.add_device("l2.window_entries", window_entries(cfg, bufs))
+    with spans.span("batch.n_live_read"):
+        n_live = int(bufs["n_live"])
+    n = n_chunks(cfg, n_live)
+    spans.count("l2.event_slots",
+                n * cfg.unit_chunk * (2 * cfg.l2_entry_cap + 1))
+    return n
+
+
 def stage_pre(cfg: MapperConfig, t: IndexTables, bufs: dict) -> None:
     """Stage 1: ``locate_units`` on ``bufs["frags"]``, its unit arrays
     padded with invalid units to whole chunks (the JAX ``pad_to``), and the
@@ -269,7 +301,7 @@ def map_step_packed(cfg: MapperConfig, frags: torch.Tensor, t: IndexTables,
     ``fallback_mask`` (F,) bool."""
     bufs = dict(zip(INPUTS, (frags, qno_row, qsid_row, row_valid)))
     stage_pre(cfg, t, bufs)
-    for _ in range(n_chunks(cfg, bufs["n_live"])):
+    for _ in range(live_chunks(cfg, bufs)):
         stage_chunk(cfg, t, bufs)
     stage_post(cfg, t, bufs)
     return {name: bufs[name] for name in OUTPUTS}
@@ -329,7 +361,7 @@ class StepGraphs:
         for name, x in inputs.items():
             self.bufs[name].copy_(x)
         self._replay("pre")
-        self.replay_chunks(n_chunks(self.cfg, self.bufs["n_live"]))
+        self.replay_chunks(live_chunks(self.cfg, self.bufs))
         self._replay("post")
         slot = self.slots[self._turn]
         self._turn ^= 1
@@ -375,7 +407,8 @@ class HostInputs:
             i = self._turn
             self._turn ^= 1
             if self._events[i] is not None:
-                self._events[i].synchronize()
+                with spans.span("batch.upload_wait"):
+                    self._events[i].synchronize()
             pinned, host = self._sets[i]
         else:
             host = self._arrays()
@@ -524,10 +557,12 @@ class Mapper:
         dev = self.index.device
         if self._inputs is None:
             self._inputs = HostInputs(self.height, self.cfg.frag_len, dev)
-        inputs = self._inputs.upload(frags, qno_row, qsid_row, n_used)
+        with spans.span("batch.upload"):
+            inputs = self._inputs.upload(frags, qno_row, qsid_row, n_used)
         if self.graphs:
             if self._step is None:
-                self._step = self._capture(inputs)
+                with spans.span("batch.capture"):
+                    self._step = self._capture(inputs)
             out = self._step.run(inputs)
             self.replays += 1
         else:

@@ -35,9 +35,23 @@ Both paths take their index from ``reference_index``: built on the
 device, or restored with ``--loadIndex`` (which also sets the reference
 list, so it comes before anything counts the reference genomes), and
 saved with ``--saveIndex``.  ``run_fast`` shrinks hits_cap to the
-workload before its loop (``autotune_hits_cap``).  With ``--profile DIR``
-(``params.profile_dir``) each path's mapping phase runs under
-``torch.profiler`` (``profiled``), which writes a Chrome trace into DIR.
+workload before its loop (``autotune_hits_cap``).
+
+Each path records its job's spans and counters (``utils/spans.py``):
+``job``; ``index_build``; ``mapper_init`` (``mapper.tables``,
+``query_plan``, ``autotune``); ``map_loop`` (a ``batch`` span a batch
+with ``batch.make``, ``query.load`` whenever a query genome is parsed,
+and the map step's and CGI's spans, then ``cgi.finalize``,
+``map_finish`` with ``map_finish.read`` and a ``redo`` a redone query
+genome; on the exact path ``batch.collect``, ``fold`` and ``visual``);
+``write`` (``write.results``, ``write.lengths``, ``write.tsv``,
+``write.matrix``).  The ``stats`` phase seconds (``t_index_build``,
+``t_mapper_init``, ``t_autotune``, ``t_map_fold``, ``t_map``,
+``t_fold``, ``t_visual``, ``t_write``) are their spans' summed
+durations.  With ``--profile DIR`` (``params.profile_dir``) the whole job
+runs under ``torch.profiler`` (``profiled``), which writes one Chrome
+trace, ``DIR/job.pt.trace.json``, every span in it as a range beside
+the device's kernels.
 The multi-device runner (``parallel/runner.py``) reuses the pieces:
 ``tuned_mapper``, ``map_batch_cgi``, ``read_stacks``, ``redo_queries``,
 ``two_deep``, ``batch_rows``, ``rows_by_query``, ``fold_queries`` and
@@ -64,6 +78,7 @@ from fastani_tpu_torch.models import ani, device_cgi, glue, jitmap, output
 from fastani_tpu_torch.ops import cuda, hashing
 from fastani_tpu_torch.ops.cuda import resolve_device
 from fastani_tpu_torch.ops.stats import identities_for
+from fastani_tpu_torch.utils import spans
 
 
 @dataclasses.dataclass
@@ -113,10 +128,11 @@ class FragmentStream:
         self.params = params
         self._cache: Dict[int, QueryFragments] = {}
         self.counts, self._vis = [], []
-        for p in self.paths:
-            qf = load_query_fragments(p, params)
-            self.counts.append(qf.total_fragments)
-            self._vis.append(qf.vis_offsets)
+        with spans.span("query_plan"):
+            for p in self.paths:
+                qf = load_query_fragments(p, params)
+                self.counts.append(qf.total_fragments)
+                self._vis.append(qf.vis_offsets)
         self.offsets = np.concatenate([[0], np.cumsum(self.counts)]
                                       ).astype(np.int64)
         self.F = int(self.offsets[-1])
@@ -132,7 +148,9 @@ class FragmentStream:
 
     def get_query(self, qno: int) -> QueryFragments:
         if qno not in self._cache:
-            self._cache[qno] = load_query_fragments(self.paths[qno], self.params)
+            with spans.span("query.load", q=qno):
+                self._cache[qno] = load_query_fragments(self.paths[qno],
+                                                        self.params)
         return self._cache[qno]
 
     def evict_up_to(self, qno: int) -> None:
@@ -301,9 +319,11 @@ def map_queries_cgi_stream(stream: FragmentStream, index: ReferenceIndex,
     for i, b0 in enumerate(starts):
         if fins[i]:
             cgi.finalize_list(fins[i])
-        map_batch_cgi(*stream.make_batch(b0, B), mapper, cgi, counts[i],
-                      masks[i])
-        stream.evict_up_to(stream.qno_of_row(b0))
+        with spans.span("batch", i=i):
+            with spans.span("batch.make"):
+                batch = stream.make_batch(b0, B)
+            map_batch_cgi(*batch, mapper, cgi, counts[i], masks[i])
+            stream.evict_up_to(stream.qno_of_row(b0))
     if tail:
         cgi.finalize_list(tail)
     return CGIRunHandle(cgi, counts, masks, stream, starts, n_query_genomes,
@@ -323,12 +343,14 @@ def map_queries_cgi_finish(handle: CGIRunHandle, index: ReferenceIndex,
     stats = {} if stats is None else stats
     stats.setdefault("fallback_frags", 0)
     stats.setdefault("oracle_frags", 0)
-    redo = read_stacks(handle.counts, handle.fb_masks, handle.starts,
-                       handle.stream, stats)
-    stats["batches"] = len(handle.starts)
-    counts, sums = handle.cgi.result()
-    redo_queries(counts, sums, sorted(redo), handle.stream, params, mapper,
-                 index.genome_of_seq(), stats)
+    with spans.span("map_finish"):
+        with spans.span("map_finish.read"):
+            redo = read_stacks(handle.counts, handle.fb_masks,
+                               handle.starts, handle.stream, stats)
+            counts, sums = handle.cgi.result()
+        stats["batches"] = len(handle.starts)
+        redo_queries(counts, sums, sorted(redo), handle.stream, params,
+                     mapper, index.genome_of_seq(), stats)
     stats["redone_queries"] = len(redo)
     return counts, sums
 
@@ -352,10 +374,11 @@ def redo_queries(counts: np.ndarray, sums: np.ndarray, qnos, stream,
                  batch: Optional[int] = None) -> "jitmap.Mapper":
     """Replace the (counts, sums) rows of query genomes ``qnos`` by the
     exact redo's (``_redo_query_exact``), in place; returns the mapper
-    whose caps held the last batch."""
+    whose caps held the last batch.  Span ``redo`` a query genome."""
     for qno in qnos:
-        row, mapper = _redo_query_exact(qno, stream, params, mapper,
-                                        genome_of_seq, stats, batch)
+        with spans.span("redo", q=qno):
+            row, mapper = _redo_query_exact(qno, stream, params, mapper,
+                                            genome_of_seq, stats, batch)
         counts[qno, :] = 0
         sums[qno, :] = 0.0
         for g, (c, sm) in row.items():
@@ -371,10 +394,13 @@ def two_deep(jobs):
     so the host's work on job i (``Mapper.collect``, whose copies were
     enqueued right behind job i) overlaps the device's on job i+1.
     Yields (job, its ``BatchHandle``) in order; a handle is consumed
-    before the next is asked for (a mapper keeps two batches' outputs)."""
+    before the next is asked for (a mapper keeps two batches' outputs).
+    Span ``batch`` a dispatch."""
     inflight = collections.deque()
-    for job in jobs:
-        inflight.append((job, job[0].dispatch(*job[1:5], to_host=True)))
+    for i, job in enumerate(jobs):
+        with spans.span("batch", i=i):
+            h = job[0].dispatch(*job[1:5], to_host=True)
+        inflight.append((job, h))
         if len(inflight) == 2:
             yield inflight.popleft()
     while inflight:
@@ -388,14 +414,13 @@ def batch_rows(mapper: "jitmap.Mapper", handle, frags: np.ndarray,
     (``Mapper.collect``).  Its overflowed fragments, real rows only, are
     mapped again by ``glue.map_fallback_batch`` with ``fb_mapper``.
     Returns (row columns (qno, qsid, sid, start, ident) per part, the
-    mapper whose caps held the fallback).  ``stats["t_rows"]`` sums the
-    host's reads of the rows and their identities."""
-    t0 = time.time()
-    got = mapper.collect(handle)
-    _, qno, qsid, sid, shared, sketch, pos = got["rows"]
-    ident, _ = identities_for(shared, sketch, params.kmer_size)
+    mapper whose caps held the fallback).  Span ``batch.collect``: the
+    host's read of the rows and their identities."""
+    with spans.span("batch.collect"):
+        got = mapper.collect(handle)
+        _, qno, qsid, sid, shared, sketch, pos = got["rows"]
+        ident, _ = identities_for(shared, sketch, params.kmer_size)
     parts = [(qno, qsid, sid, pos, ident)]
-    stats["t_rows"] = stats.get("t_rows", 0) + time.time() - t0
     _note_batch(stats, got["counts"])
     fb = got["fallback"]
     if len(fb):
@@ -435,13 +460,15 @@ def map_queries_batched(stream: FragmentStream, index: ReferenceIndex,
     dispatched two deep (``two_deep``), each read by ``batch_rows``.
     Returns ``rows_by_query``'s column dict per query genome."""
     stats = {} if stats is None else stats
-    for key in ("fallback_frags", "oracle_frags", "t_rows"):
+    for key in ("fallback_frags", "oracle_frags"):
         stats.setdefault(key, 0)
     B = params.frag_batch
 
     def jobs():
         for b0 in range(0, stream.F, B):
-            yield (mapper, *stream.make_batch(b0, B))
+            with spans.span("batch.make"):
+                batch = stream.make_batch(b0, B)
+            yield (mapper, *batch)
             stream.evict_up_to(stream.qno_of_row(b0))
 
     parts = []
@@ -459,12 +486,11 @@ def _sync(dev: torch.device) -> None:
 
 
 @contextlib.contextmanager
-def profiled(params: Parameters, dev: torch.device, stats: dict, log,
-             phase: str):
-    """With ``params.profile_dir``, the body runs under ``torch.profiler``
-    (CPU activity, and CUDA on a card) and its Chrome trace is written to
-    ``{profile_dir}/{phase}.pt.trace.json`` (path logged and kept in
-    ``stats["profile_trace"]``, the write's seconds in
+def profiled(params: Parameters, dev: torch.device, stats: dict, log):
+    """With ``params.profile_dir``, the body (a whole job) runs under
+    ``torch.profiler`` (CPU activity, and CUDA on a card) and its Chrome
+    trace is written to ``{profile_dir}/job.pt.trace.json`` (path logged
+    and kept in ``stats["profile_trace"]``, the write's seconds in
     ``stats["t_trace_export"]``, each kernel's launches inside the traced
     body in ``stats["profile_launches"]``); without it, the body just
     runs."""
@@ -484,7 +510,7 @@ def profiled(params: Parameters, dev: torch.device, stats: dict, log,
                                  for name, n in before.items()}
     t0 = time.time()
     os.makedirs(params.profile_dir, exist_ok=True)
-    path = os.path.join(params.profile_dir, f"{phase}.pt.trace.json")
+    path = os.path.join(params.profile_dir, "job.pt.trace.json")
     prof.export_chrome_trace(path)
     stats["profile_trace"] = path
     stats["t_trace_export"] = time.time() - t0
@@ -498,16 +524,18 @@ def reference_index(params: Parameters, dev: torch.device, stats: dict,
     (which sets ``params.ref_sequences`` from the file), or built from
     ``ref_files`` (default ``params.ref_sequences``; the build checks its
     overflow and rebuilds); then saved to ``save_path``.  Callers read the
-    reference count only after this."""
+    reference count only after this.  Span ``index_build``; its seconds,
+    summed over the job's builds, in ``stats["t_index_build"]``."""
     t0 = time.time()
-    if load_path:
-        index = ReferenceIndex.load(load_path, params, dev)
-        how = f"restored from {load_path}"
-    else:
-        index = ReferenceIndex.build_device(params, ref_files, device=dev)
-        how = "sketched"
-    _sync(dev)
-    stats["t_index_build"] = stats.get("t_index_build", 0) + time.time() - t0
+    with spans.span("index_build"):
+        if load_path:
+            index = ReferenceIndex.load(load_path, params, dev)
+            how = f"restored from {load_path}"
+        else:
+            index = ReferenceIndex.build_device(params, ref_files, device=dev)
+            how = "sketched"
+        _sync(dev)
+    stats["t_index_build"] = spans.seconds("index_build")
     log(f"INFO, fastani_tpu_torch, reference {how} on {dev} in "
         f"{time.time() - t0:.2f}s: {index.n_entries} minimizers "
         f"(window size {params.window_size})")
@@ -554,12 +582,12 @@ def tuned_mapper(mapper: "jitmap.Mapper", stream: FragmentStream,
                  params: Parameters, stats: dict, log) -> "jitmap.Mapper":
     """``autotune_hits_cap``, logged, with the static and the tuned cap in
     ``stats["hits_cap_static"]`` and ``stats["hits_cap"]``, and its
-    seconds (synchronised) in ``stats["t_autotune"]``."""
+    seconds (span ``autotune``, synchronised) in ``stats["t_autotune"]``."""
     stats["hits_cap_static"] = mapper.cfg.hits_cap
-    t0 = time.time()
-    mapper = autotune_hits_cap(mapper, stream, params)
-    _sync(mapper.index.device)
-    stats["t_autotune"] = time.time() - t0
+    with spans.span("autotune"):
+        mapper = autotune_hits_cap(mapper, stream, params)
+        _sync(mapper.index.device)
+    stats["t_autotune"] = spans.seconds("autotune")
     stats["hits_cap"] = mapper.cfg.hits_cap
     log(f"INFO, fastani_tpu_torch, hits_cap auto-tuned to "
         f"{stats['hits_cap']} (static {stats['hits_cap_static']})")
@@ -569,11 +597,13 @@ def tuned_mapper(mapper: "jitmap.Mapper", stream: FragmentStream,
 def _make_mapper(params: Parameters, index: ReferenceIndex) -> "jitmap.Mapper":
     """The mapper of both paths, at the caps ``config.scale_caps`` set for
     the reference count: L2 units for ~1.7 candidate regions per fragment
-    and reference genome, chunks of up to 512 units."""
+    and reference genome, chunks of up to 512 units.  Span
+    ``mapper.tables``."""
     G = len(params.ref_sequences)
-    return jitmap.Mapper(params, index,
-                         unit_factor=max(G + 2, int(1.7 * G) + 8),
-                         unit_chunk=min(512, params.frag_batch))
+    with spans.span("mapper.tables"):
+        return jitmap.Mapper(params, index,
+                             unit_factor=max(G + 2, int(1.7 * G) + 8),
+                             unit_chunk=min(512, params.frag_batch))
 
 
 def fold_queries(maps: List[dict], genome_of_seq: np.ndarray,
@@ -584,38 +614,43 @@ def fold_queries(maps: List[dict], genome_of_seq: np.ndarray,
     ``genome_of_seq`` and ``ref_offsets`` (each contig's global offset);
     with ``params.visualize`` each genome's 2-way rows are appended to the
     ``.visual`` file.  Returns the CGI rows; ``stats`` takes the fold's and
-    the ``.visual`` write's times (``t_fold``, ``t_visual``)."""
+    the ``.visual`` write's times (spans ``fold`` and ``visual`` a query
+    genome; ``t_fold``, ``t_visual``)."""
     final: List[ani.CGIResult] = []
-    stats["t_fold"] = stats["t_visual"] = 0.0
     for qno, m in enumerate(maps):
-        t0 = time.time()
-        rows, visual = ani.compute_cgi_arrays(
-            m["ref_seq_id"], m["query_seq_id"], m["ref_start_pos"],
-            m["ident"], genome_of_seq, params.frag_len, qno,
-            stream.total_fragments(qno), want_visual=params.visualize)
+        with spans.span("fold", q=qno):
+            rows, visual = ani.compute_cgi_arrays(
+                m["ref_seq_id"], m["query_seq_id"], m["ref_start_pos"],
+                m["ident"], genome_of_seq, params.frag_len, qno,
+                stream.total_fragments(qno), want_visual=params.visualize)
         final.extend(rows)
-        t1 = time.time()
-        stats["t_fold"] += t1 - t0
         if params.visualize and params.out_file_name:
-            output.write_visual(visual, params, qno, stream.vis_offsets(qno),
-                                ref_offsets, params.out_file_name,
-                                append=True)
-            stats["t_visual"] += time.time() - t1
+            with spans.span("visual", q=qno):
+                output.write_visual(visual, params, qno,
+                                    stream.vis_offsets(qno), ref_offsets,
+                                    params.out_file_name, append=True)
+    stats["t_fold"] = spans.seconds("fold")
+    stats["t_visual"] = spans.seconds("visual")
     return final
 
 
 def write_results(final: List[ani.CGIResult], params: Parameters) -> None:
-    """The TSV, and the ``.matrix`` with params.matrix_output."""
+    """The TSV, and the ``.matrix`` with params.matrix_output (spans
+    ``write.lengths``, ``write.tsv``, ``write.matrix``)."""
     if not params.out_file_name:
         return
-    genome_lengths: Dict[str, int] = {}
-    for e in list(params.query_sequences) + list(params.ref_sequences):
-        if e not in genome_lengths:
-            genome_lengths[e] = fasta.genome_length_for_ani(e, params.frag_len)
-    output.write_cgi(final, genome_lengths, params, params.out_file_name)
+    with spans.span("write.lengths"):
+        genome_lengths: Dict[str, int] = {}
+        for e in list(params.query_sequences) + list(params.ref_sequences):
+            if e not in genome_lengths:
+                genome_lengths[e] = fasta.genome_length_for_ani(
+                    e, params.frag_len)
+    with spans.span("write.tsv"):
+        output.write_cgi(final, genome_lengths, params, params.out_file_name)
     if params.matrix_output:
-        output.write_phylip(final, genome_lengths, params,
-                            params.out_file_name)
+        with spans.span("write.matrix"):
+            output.write_phylip(final, genome_lengths, params,
+                                params.out_file_name)
 
 
 def run_fast(params: Parameters, device="cuda",
@@ -624,39 +659,42 @@ def run_fast(params: Parameters, device="cuda",
     """Device index build + map/fold stream + one readout; writes the TSV
     (and ``.matrix`` with params.matrix_output).  Runs on ``cuda`` unless
     the caller asks for ``cpu``; raises if no card is present.  ``stats``,
-    when given, receives phase wall times and the counters' maxima."""
+    when given, receives phase wall times, the counters' maxima and the
+    job's spans and counters."""
     dev = resolve_device(device)
     stats = {} if stats is None else stats
-    params.finalize()
-    # --loadIndex sets the reference list, so the index comes before
-    # anything reads the reference count
-    index = reference_index(params, dev, stats, log,
-                            load_path=params.load_index,
-                            save_path=params.save_index)
-    G = len(params.ref_sequences)
-    scale_caps(G, params)
+    with profiled(params, dev, stats, log), spans.job(stats):
+        params.finalize()
+        # --loadIndex sets the reference list, so the index comes before
+        # anything reads the reference count
+        index = reference_index(params, dev, stats, log,
+                                load_path=params.load_index,
+                                save_path=params.save_index)
+        G = len(params.ref_sequences)
+        scale_caps(G, params)
 
-    t0 = time.time()
-    mapper = _make_mapper(params, index)
-    stream = FragmentStream(params.query_sequences, params)
-    mapper = tuned_mapper(mapper, stream, params, stats, log)
-    _sync(dev)
-    stats["t_mapper_init"] = time.time() - t0
+        with spans.span("mapper_init"):
+            mapper = _make_mapper(params, index)
+            stream = FragmentStream(params.query_sequences, params)
+            mapper = tuned_mapper(mapper, stream, params, stats, log)
+            _sync(dev)
+        stats["t_mapper_init"] = spans.seconds("mapper_init")
 
-    t0 = time.time()
-    n_q = len(stream.paths)
-    with profiled(params, dev, stats, log, "map_fold"):
-        counts, sums = map_queries_cgi_device(stream, index, params, mapper,
-                                              n_q, G, stats=stats)
-        stats["t_map_fold"] = time.time() - t0      # before a trace's write
-    stats.update(mapper.graph_stats())
-    log(f"INFO, fastani_tpu_torch, mapped {n_q} queries ({stream.F} "
-        f"fragments) + device CGI in {stats['t_map_fold']:.2f}s")
+        n_q = len(stream.paths)
+        with spans.span("map_loop"):
+            counts, sums = map_queries_cgi_device(stream, index, params,
+                                                  mapper, n_q, G, stats=stats)
+        stats["t_map_fold"] = spans.seconds("map_loop")
+        stats.update(mapper.graph_stats())
+        log(f"INFO, fastani_tpu_torch, mapped {n_q} queries ({stream.F} "
+            f"fragments) + device CGI in {stats['t_map_fold']:.2f}s")
 
-    t0 = time.time()
-    final = ani.results_from_matrices(counts, sums, stream.total_fragments)
-    write_results(final, params)
-    stats["t_write"] = time.time() - t0
+        with spans.span("write"):
+            with spans.span("write.results"):
+                final = ani.results_from_matrices(counts, sums,
+                                                  stream.total_fragments)
+            write_results(final, params)
+        stats["t_write"] = spans.seconds("write")
     return final
 
 
@@ -671,43 +709,45 @@ def run(params: Parameters, device="cuda",
     present.  Returns the CGI rows (before the minFraction gate)."""
     dev = resolve_device(device)
     stats = {} if stats is None else stats
-    params.finalize()
-    index = reference_index(params, dev, stats, log,
-                            load_path=params.load_index,
-                            save_path=params.save_index)
-    # the caps of run_fast (the JAX run keeps the defaults, which mid's
-    # hits and L2 units overflow on most batches): the answer does not
-    # depend on them, and at these no mid fragment falls back
-    scale_caps(len(params.ref_sequences), params)
-    out_path = params.out_file_name
-    sane = not params.sanity_check or index.sanity_check(params.max_ratio_diff)
-    if params.visualize and out_path:
-        open(out_path + ".visual", "w").close()      # fresh run, then appends
+    with profiled(params, dev, stats, log), spans.job(stats):
+        params.finalize()
+        index = reference_index(params, dev, stats, log,
+                                load_path=params.load_index,
+                                save_path=params.save_index)
+        # the caps of run_fast (the JAX run keeps the defaults, which mid's
+        # hits and L2 units overflow on most batches): the answer does not
+        # depend on them, and at these no mid fragment falls back
+        scale_caps(len(params.ref_sequences), params)
+        out_path = params.out_file_name
+        sane = (not params.sanity_check
+                or index.sanity_check(params.max_ratio_diff))
+        if params.visualize and out_path:
+            open(out_path + ".visual", "w").close()  # fresh run, then appends
 
-    final: List[ani.CGIResult] = []
-    if sane:
-        t0 = time.time()
-        mapper = _make_mapper(params, index)
-        stream = FragmentStream(params.query_sequences, params)
-        _sync(dev)
-        stats["t_mapper_init"] = time.time() - t0
+        final: List[ani.CGIResult] = []
+        if sane:
+            with spans.span("mapper_init"):
+                mapper = _make_mapper(params, index)
+                stream = FragmentStream(params.query_sequences, params)
+                _sync(dev)
+            stats["t_mapper_init"] = spans.seconds("mapper_init")
 
-        t0 = time.time()
-        with profiled(params, dev, stats, log, "map"):
-            maps = map_queries_batched(stream, index, params, mapper, stats)
-            stats["t_map"] = time.time() - t0       # before a trace's write
-        stats.update(mapper.graph_stats())
-        log(f"INFO, fastani_tpu_torch, mapped {len(stream.paths)} queries "
-            f"({stream.F} fragments) in {stats['t_map']:.2f}s")
-        lengths = np.array([c.length for c in index.metadata], np.int64)
-        final = fold_queries(maps, index.genome_of_seq(),
-                             np.cumsum(lengths) - lengths, stream, params,
-                             stats)
-    else:
-        log(f"ERROR :: SPLIT 0's ratio difference {index.ratio_difference} "
-            f"exceeds maximum thresholds.")
+            with spans.span("map_loop"):
+                maps = map_queries_batched(stream, index, params, mapper,
+                                           stats)
+            stats["t_map"] = spans.seconds("map_loop")
+            stats.update(mapper.graph_stats())
+            log(f"INFO, fastani_tpu_torch, mapped {len(stream.paths)} "
+                f"queries ({stream.F} fragments) in {stats['t_map']:.2f}s")
+            lengths = np.array([c.length for c in index.metadata], np.int64)
+            final = fold_queries(maps, index.genome_of_seq(),
+                                 np.cumsum(lengths) - lengths, stream, params,
+                                 stats)
+        else:
+            log(f"ERROR :: SPLIT 0's ratio difference "
+                f"{index.ratio_difference} exceeds maximum thresholds.")
 
-    t0 = time.time()
-    write_results(final, params)
-    stats["t_write"] = time.time() - t0
+        with spans.span("write"):
+            write_results(final, params)
+        stats["t_write"] = spans.seconds("write")
     return final

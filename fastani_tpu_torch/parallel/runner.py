@@ -39,14 +39,15 @@ Process 0 writes the files and returns the CGI rows; the other
 processes return [].  With ``-s`` each shard is checked on its own
 (``ERROR :: SPLIT {r}'s ratio difference ...``), and a failing shard maps
 nothing.  With one shard the fast path tunes hits_cap as ``run_fast``
-does (``pipeline.autotune_hits_cap``).
+does (``pipeline.autotune_hits_cap``).  Each process records its job's
+spans and counters (``utils/spans.py``) as ``pipeline``'s paths do, the
+shared helpers' spans included; ``stats`` takes this process's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import sys
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -56,6 +57,7 @@ from fastani_tpu_torch.config import Parameters, scale_caps
 from fastani_tpu_torch.index.sketch import ReferenceIndex
 from fastani_tpu_torch.models import ani, device_cgi, jitmap, pipeline
 from fastani_tpu_torch.parallel import distributed, mesh as pmesh
+from fastani_tpu_torch.utils import spans
 
 
 @dataclasses.dataclass
@@ -111,12 +113,14 @@ def _prepare(params: Parameters, n_r: Optional[int], n_q: Optional[int],
                 log(f"ERROR :: SPLIT {r}'s ratio difference {diff} exceeds "
                     f"maximum thresholds.")
                 live.discard(r)
-    t0 = time.time()
-    stream = pipeline.FragmentStream(params.query_sequences, params)
-    B_local = -(-params.frag_batch // plan.n_q)
-    mappers = {r: pmesh.shard_mapper(params, shards[r], n_local[r], B_local)
-               for r in plan.rows if r in live}
-    stats["t_mapper_init"] = time.time() - t0
+    with spans.span("mapper_init"):
+        stream = pipeline.FragmentStream(params.query_sequences, params)
+        B_local = -(-params.frag_batch // plan.n_q)
+        with spans.span("mapper.tables"):
+            mappers = {r: pmesh.shard_mapper(params, shards[r], n_local[r],
+                                             B_local)
+                       for r in plan.rows if r in live}
+    stats["t_mapper_init"] = spans.seconds("mapper_init")
     return _Run(plan, shards, n_local, mappers, stream, B_local)
 
 
@@ -169,7 +173,7 @@ def run_sharded_fused(params: Parameters, n_r: Optional[int] = None,
     returns the CGI rows; the other processes return []."""
     stats = {} if stats is None else stats
     with distributed.session(coordinator, num_processes, process_id,
-                             device) as dev:
+                             device) as dev, spans.job(stats):
         run = _prepare(params, n_r, n_q, dev, stats, log)
         plan, stream = run.plan, run.stream
         n_queries = len(stream.paths)
@@ -190,67 +194,79 @@ def run_sharded_fused(params: Parameters, n_r: Optional[int] = None,
                                      dtype=torch.bool, device=dev))
                   for cell in cells}
 
-        t0 = time.time()
         local = {"fallback_frags": 0, "oracle_frags": 0}
-        for i, b0 in enumerate(starts):
-            if fins[i]:
-                _finalize(run, cells, fins[i])
-            frags, qno_row, gid_row, n_used = stream.make_batch(b0, B)
-            for r, q, sl, n in run.slices(n_used):
-                counts, masks = stacks[(r, q)]
-                pipeline.map_batch_cgi(frags[sl], qno_row[sl], gid_row[sl],
-                                       n, run.mappers[r], cells[(r, q)],
-                                       counts[i], masks[i])
-            stream.evict_up_to(stream.qno_of_row(b0))
-        if tail:
-            _finalize(run, cells, tail)
-        _graph_stats(stats, run.mappers)
-        # the run's one read of the stacks: the counters, and the query
-        # genomes that own an overflowed fragment (only if one did)
-        redo = set()
-        for (r, q), (counts, masks) in stacks.items():
-            redo |= pipeline.read_stacks(
-                counts, masks, [b0 + q * run.B_local for b0 in starts],
-                stream, local)
+        with spans.span("map_loop"):
+            for i, b0 in enumerate(starts):
+                if fins[i]:
+                    _finalize(run, cells, fins[i])
+                with spans.span("batch", i=i):
+                    with spans.span("batch.make"):
+                        frags, qno_row, gid_row, n_used = stream.make_batch(
+                            b0, B)
+                    for r, q, sl, n in run.slices(n_used):
+                        counts, masks = stacks[(r, q)]
+                        pipeline.map_batch_cgi(
+                            frags[sl], qno_row[sl], gid_row[sl], n,
+                            run.mappers[r], cells[(r, q)], counts[i],
+                            masks[i])
+                    stream.evict_up_to(stream.qno_of_row(b0))
+            if tail:
+                _finalize(run, cells, tail)
+            _graph_stats(stats, run.mappers)
+            with spans.span("map_finish"):
+                # the run's one read of the stacks: the counters, and the
+                # query genomes that own an overflowed fragment (only if
+                # one did)
+                redo = set()
+                with spans.span("map_finish.read"):
+                    for (r, q), (counts, masks) in stacks.items():
+                        redo |= pipeline.read_stacks(
+                            counts, masks,
+                            [b0 + q * run.B_local for b0 in starts], stream,
+                            local)
 
-        # the device CGI left the overflowed fragments out: each shard
-        # redoes every query genome that owns one, on any shard
-        redo_all = sorted(set().union(*distributed.all_gather(redo)))
-        results = {}
-        for r in plan.rows:
-            if r not in run.mappers or not plan.reports(r):
-                continue
-            c, s = cells[(r, 0)].result()
-            run.mappers[r] = pipeline.redo_queries(
-                c, s, redo_all, stream, params, run.mappers[r],
-                run.shards[r].genome_of_seq(), local, batch=run.B_local)
-            results[r] = (c, s)
+                # the device CGI left the overflowed fragments out: each
+                # shard redoes every query genome that owns one, on any
+                # shard
+                redo_all = sorted(set().union(*distributed.all_gather(redo)))
+                results = {}
+                for r in plan.rows:
+                    if r not in run.mappers or not plan.reports(r):
+                        continue
+                    with spans.span("map_finish.read"):
+                        c, s = cells[(r, 0)].result()
+                    run.mappers[r] = pipeline.redo_queries(
+                        c, s, redo_all, stream, params, run.mappers[r],
+                        run.shards[r].genome_of_seq(), local,
+                        batch=run.B_local)
+                    results[r] = (c, s)
 
-        gathered = distributed.gather((results, local))
+                gathered = distributed.gather((results, local))
         for _, st in gathered or [(None, local)]:
             _merge_stats(stats, st)
         stats["batches"] = len(starts)
         stats["redone_queries"] = len(redo_all)
-        stats["t_map_fold"] = time.time() - t0
+        stats["t_map_fold"] = spans.seconds("map_loop")
         log(f"INFO, fastani_tpu_torch, mapped {n_queries} queries "
             f"({stream.F} fragments) + device CGI on the mesh in "
             f"{stats['t_map_fold']:.2f}s")
 
-        t0 = time.time()
         final = []
-        if gathered is not None:
-            n_ref = len(params.ref_sequences)
-            counts = np.zeros((n_queries, n_ref), np.int64)
-            sums = np.zeros((n_queries, n_ref), np.float32)
-            for part, _ in gathered:
-                for r, (c, s) in part.items():
-                    cols = pmesh.global_genomes(c.shape[1], plan.n_r, r)
-                    counts[:, cols] = c
-                    sums[:, cols] = s
-            final = ani.results_from_matrices(counts, sums,
-                                              stream.total_fragments)
-            pipeline.write_results(final, params)
-        stats["t_write"] = time.time() - t0
+        with spans.span("write"):
+            if gathered is not None:
+                n_ref = len(params.ref_sequences)
+                counts = np.zeros((n_queries, n_ref), np.int64)
+                sums = np.zeros((n_queries, n_ref), np.float32)
+                for part, _ in gathered:
+                    for r, (c, s) in part.items():
+                        cols = pmesh.global_genomes(c.shape[1], plan.n_r, r)
+                        counts[:, cols] = c
+                        sums[:, cols] = s
+                with spans.span("write.results"):
+                    final = ani.results_from_matrices(
+                        counts, sums, stream.total_fragments)
+                pipeline.write_results(final, params)
+        stats["t_write"] = spans.seconds("write")
     return final
 
 
@@ -267,7 +283,7 @@ def run_sharded(params: Parameters, n_r: Optional[int] = None,
     files and returns the CGI rows; the other processes return []."""
     stats = {} if stats is None else stats
     with distributed.session(coordinator, num_processes, process_id,
-                             device) as dev:
+                             device) as dev, spans.job(stats):
         run = _prepare(params, n_r, n_q, dev, stats, log)
         plan, stream = run.plan, run.stream
         contigs = {}
@@ -278,13 +294,13 @@ def run_sharded(params: Parameters, n_r: Optional[int] = None,
         layout = pmesh.global_layout(contigs, len(params.ref_sequences),
                                      plan.n_r)
 
-        t0 = time.time()
         B = run.B_local * plan.n_q
         local = {"fallback_frags": 0, "oracle_frags": 0}
 
         def jobs():
             for b0 in range(0, stream.F, B):
-                frags, qno_row, gid_row, n_used = stream.make_batch(b0, B)
+                with spans.span("batch.make"):
+                    frags, qno_row, gid_row, n_used = stream.make_batch(b0, B)
                 for r, q, sl, n in run.slices(n_used):
                     yield (run.mappers[r], frags[sl], qno_row[sl],
                            gid_row[sl], n, r)
@@ -292,20 +308,21 @@ def run_sharded(params: Parameters, n_r: Optional[int] = None,
 
         parts = []         # (qno, qsid, global sid, start, ident) columns
         fb_mappers = dict(run.mappers)
-        for (mapper, frags, qno_row, gid_row, _, r), h in \
-                pipeline.two_deep(jobs()):
-            cell_parts, fb_mappers[r] = pipeline.batch_rows(
-                mapper, h, frags, qno_row, gid_row, fb_mappers[r], params,
-                local)
-            gsid = layout.global_sid[r]
-            parts.extend((qn, qs, gsid[sid], st, idt)
-                         for qn, qs, sid, st, idt in cell_parts)
-        _graph_stats(stats, run.mappers)
-        gathered = distributed.gather((parts, local))
+        with spans.span("map_loop"):
+            for (mapper, frags, qno_row, gid_row, _, r), h in \
+                    pipeline.two_deep(jobs()):
+                cell_parts, fb_mappers[r] = pipeline.batch_rows(
+                    mapper, h, frags, qno_row, gid_row, fb_mappers[r],
+                    params, local)
+                gsid = layout.global_sid[r]
+                parts.extend((qn, qs, gsid[sid], st, idt)
+                             for qn, qs, sid, st, idt in cell_parts)
+            _graph_stats(stats, run.mappers)
+            gathered = distributed.gather((parts, local))
         for _, st in gathered or [(None, local)]:
             _merge_stats(stats, st)
         stats["batches"] = -(-stream.F // B)
-        stats["t_map"] = time.time() - t0
+        stats["t_map"] = spans.seconds("map_loop")
         log(f"INFO, fastani_tpu_torch, mapped {len(stream.paths)} queries "
             f"({stream.F} fragments) on the mesh in {stats['t_map']:.2f}s")
         if gathered is None:
@@ -319,7 +336,7 @@ def run_sharded(params: Parameters, n_r: Optional[int] = None,
         final = pipeline.fold_queries(
             maps, layout.genome_of_seq, np.cumsum(lens) - lens, stream,
             params, stats)
-        t0 = time.time()
-        pipeline.write_results(final, params)
-        stats["t_write"] = time.time() - t0
+        with spans.span("write"):
+            pipeline.write_results(final, params)
+        stats["t_write"] = spans.seconds("write")
     return final

@@ -1,7 +1,9 @@
 """``--profile DIR`` of the port's CLI on the CPU (golden fixtures): the
-mapping phase's torch.profiler trace is written into DIR and parses as a
-Chrome trace with events, and the outputs are the bytes of the same run
-without the flag, on the fast path and on the exact path."""
+whole job's torch.profiler trace is written into DIR as
+``job.pt.trace.json`` and parses as a Chrome trace with events, among
+them a range for each of the job's top-level spans, and the outputs are
+the bytes of the same run without the flag, on the fast path and on the
+exact path."""
 
 import json
 import os
@@ -21,6 +23,8 @@ from tests import synth
 torch.set_num_threads(1)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
+# the job's span and its top-level phases (fastani_tpu_torch/utils/spans.py)
+TOP = {"job", "index_build", "mapper_init", "map_loop", "write"}
 
 
 @pytest.fixture(scope="module")
@@ -35,11 +39,8 @@ def workdir(tmp_path_factory):
     return wd
 
 
-@pytest.mark.parametrize("path,trace", [([], "map_fold"),
-                                        (["--exact"], "map")],
-                         ids=["fast", "exact"])
-def test_profile_writes_trace_and_same_outputs(workdir, tmp_path, path,
-                                               trace):
+@pytest.mark.parametrize("path", [[], ["--exact"]], ids=["fast", "exact"])
+def test_profile_writes_trace_and_same_outputs(workdir, tmp_path, path):
     args = ["-q", str(workdir / "base.fa"), "-r", str(workdir / "strainA.fa"),
             "--matrix", "--device", "cpu"] + path
     prof_dir = tmp_path / "prof"
@@ -49,12 +50,14 @@ def test_profile_writes_trace_and_same_outputs(workdir, tmp_path, path,
         capture_output=True, text=True, timeout=600,
         env=dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(REPO)))
     assert res.returncode == 0, res.stderr[-3000:]
-    out = prof_dir / f"{trace}.pt.trace.json"
+    out = prof_dir / "job.pt.trace.json"
     assert f"profiler trace written to {out}" in res.stderr
     assert os.listdir(prof_dir) == [out.name]
     with open(out) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("ph") == "X" and e.get("dur", 0) > 0 for e in events)
+    ranges = {e.get("name") for e in events if e.get("ph") == "X"}
+    assert TOP <= ranges, TOP - ranges
 
     assert cli.main(args + ["-o", str(tmp_path / "n.txt")]) == 0
     for suf in ("", ".matrix"):
@@ -67,8 +70,9 @@ def test_profile_writes_trace_and_same_outputs(workdir, tmp_path, path,
                          ids=["fast", "exact"])
 def test_profile_phase_time_excludes_trace_write(workdir, tmp_path,
                                                  monkeypatch, fn, stat):
-    """The mapping phase's seconds are taken before the trace is written:
-    the stat is already set when ``export_chrome_trace`` runs."""
+    """The mapping phase's seconds are taken before the trace of the job
+    is written: the stat is already set when ``export_chrome_trace``
+    runs, once, after the job's spans are handed out."""
     from torch.profiler import profile
 
     from fastani_tpu_torch.config import Parameters
@@ -78,7 +82,7 @@ def test_profile_phase_time_excludes_trace_write(workdir, tmp_path,
     export = profile.export_chrome_trace
 
     def traced_export(self, path):
-        seen.append(stat in stats)
+        seen.append(stat in stats and "spans" in stats)
         return export(self, path)
 
     monkeypatch.setattr(profile, "export_chrome_trace", traced_export)
@@ -90,3 +94,4 @@ def test_profile_phase_time_excludes_trace_write(workdir, tmp_path,
                           stats=stats)
     assert seen == [True]
     assert stats["t_trace_export"] >= 0 and stats[stat] > 0
+    assert stats["profile_trace"].endswith("job.pt.trace.json")
