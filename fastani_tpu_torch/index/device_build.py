@@ -18,7 +18,9 @@ small for the entries is grown to fit (replaces skch::Sketch::build+index,
 winSketch.hpp:124-193).
 
 Spans (``utils/spans.py``): ``index.parse`` a reference file (the FASTA
-read, the uppercase and ``segment_rows``), ``index.flush`` a winnow launch
+read and uppercase, ``io.fasta.contigs``, which a job's memo keeps for
+its later readers, so a rebuild parses only the files whose bytes it did
+not keep, and ``segment_rows``), ``index.flush`` a winnow launch
 (the upload, K1 and K2 enqueued) with ``index.overflow_read`` (the wait on
 its overflow flag) under it, ``index.assemble`` (step 4, the entry total's
 read and step 5), and ``index.rebuild`` around a rebuild.
@@ -33,7 +35,7 @@ import torch
 
 from fastani_tpu_torch.config import Parameters
 from fastani_tpu_torch.io import fasta
-from fastani_tpu_torch.ops import compact, hashing, winnow
+from fastani_tpu_torch.ops import compact, winnow
 from fastani_tpu_torch.ops.xputils import PINF, UMAX
 from fastani_tpu_torch.utils import spans
 
@@ -122,12 +124,12 @@ def _build(cls, params, ref_files, device, cap: int):
         # flushes, so a flush never falls inside a file's parse
         with spans.span("index.parse", file=i):
             parsed = []
-            for name, seq in fasta.read_sequences(path):
+            recs = fasta.contigs(path)
+            for name, seq in zip(recs.names, recs.seqs):
                 L = len(seq)
                 metadata.append(ContigInfo(name, L))
                 if not (L < w or L < k):
-                    parsed.append((segment_rows(hashing.upper_np(seq), k, w),
-                                   seq_counter, L))
+                    parsed.append((segment_rows(seq, k, w), seq_counter, L))
                 seq_counter += 1
         for (rows, base), sid, L in parsed:
             if n_pend and n_pend + len(rows) > _FLUSH_ROWS:

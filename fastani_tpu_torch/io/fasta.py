@@ -15,17 +15,31 @@ hook: tests check which genome files a process reads).  Each parse also
 counts into the open job (``utils/spans.py``): ``fasta.parses``, also
 under the innermost open span (the parse's purpose), and
 ``fasta.files``, the distinct paths parsed.
+
+A job parses each genome file once: it opens ``memo(query paths)``, and
+inside it ``contigs`` (names and uppercased contig bytes) and
+``contig_lengths`` keep what a path's first parse gave, wherever it
+happens, and give it out to every later reader of the path.  Every path
+keeps its names and lengths; only a query path keeps its bytes, until
+``release`` (the query stream has passed it) or while the held bytes stay
+under half of the host's physical memory; past that a load parses again.
+Each answer from the memo counts ``fasta.memo_hits``, also by purpose as
+``fasta.parses`` does.  Outside a memo both functions parse every call.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import dataclasses
 import gzip
 import os
-from typing import Iterator, List, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from fastani_tpu_torch import native
+from fastani_tpu_torch.ops import hashing
 from fastani_tpu_torch.utils import spans
 
 
@@ -108,14 +122,106 @@ def read_sequences_py(path: str) -> Iterator[Tuple[str, np.ndarray]]:
         yield name, np.frombuffer(b"".join(chunks), dtype=np.uint8)
 
 
+@dataclasses.dataclass
+class Contigs:
+    """One file's records: names, lengths and, unless the memo holds the
+    lengths alone, each record's uppercased bytes."""
+    names: List[str]
+    lengths: np.ndarray                  # (n,) int64
+    seqs: Optional[List[np.ndarray]] = None
+
+    def without_bytes(self) -> "Contigs":
+        return Contigs(self.names, self.lengths)
+
+
+class _Memo:
+    """One job's parsed files by path, the query paths (whose bytes are
+    kept), the bytes held and their limit."""
+
+    def __init__(self, queries: Iterable[str]):
+        self.queries = set(queries)
+        self.files: Dict[str, Contigs] = {}
+        self.held = 0
+        self.limit = os.sysconf("SC_PAGE_SIZE") * os.sysconf(
+            "SC_PHYS_PAGES") // 2
+
+    def keep(self, path: str, c: Contigs) -> None:
+        n = int(c.lengths.sum())
+        if (c.seqs is None or path not in self.queries
+                or self.held + n > self.limit):
+            c = c.without_bytes()
+        else:
+            self.held += n
+        self.files[path] = c
+
+
+_MEMO: contextvars.ContextVar[Optional[_Memo]] = \
+    contextvars.ContextVar("fastani_tpu_torch_fasta_memo", default=None)
+
+
+@contextlib.contextmanager
+def memo(queries: Iterable[str]):
+    """Keep each parsed file for the block (a job): the lengths of every
+    path, the uppercased bytes of ``queries``.  A memo opened inside
+    another starts empty and restores the outer one."""
+    token = _MEMO.set(_Memo(queries))
+    try:
+        yield
+    finally:
+        _MEMO.reset(token)
+
+
+def _parse(path: str, upper: bool) -> Contigs:
+    names, lengths, seqs = [], [], []
+    for name, seq in read_sequences(path):
+        names.append(name)
+        lengths.append(len(seq))
+        if upper:
+            seqs.append(hashing.upper_np(seq))
+    return Contigs(names, np.asarray(lengths, np.int64),
+                   seqs if upper else None)
+
+
+def contigs(path: str) -> Contigs:
+    """The file's records with their uppercased bytes: the memo's, or
+    parsed (and kept, in a memo)."""
+    m = _MEMO.get()
+    got = m.files.get(path) if m is not None else None
+    if got is not None and got.seqs is not None:
+        spans.count("fasta.memo_hits", by_span=True)
+        return got
+    c = _parse(path, upper=True)
+    if m is not None:
+        m.keep(path, c)
+    return c
+
+
+def contig_lengths(path: str) -> np.ndarray:
+    """The file's record lengths, (n,) int64: the memo's, or parsed (a
+    query path's bytes kept with them, in a memo)."""
+    m = _MEMO.get()
+    if m is not None and path in m.files:
+        spans.count("fasta.memo_hits", by_span=True)
+        return m.files[path].lengths
+    c = _parse(path, upper=m is not None and path in m.queries)
+    if m is not None:
+        m.keep(path, c)
+    return c.lengths
+
+
+def release(path: str) -> None:
+    """Drop the memo's bytes of ``path``, keeping its names and lengths."""
+    m = _MEMO.get()
+    c = m.files.get(path) if m is not None else None
+    if c is not None and c.seqs is not None:
+        m.held -= int(c.lengths.sum())
+        m.files[path] = c.without_bytes()
+
+
 def genome_length_for_ani(path: str, frag_len: int) -> int:
     """Genome length as counted for the minFraction gate
     (cgi::computeGenomeLengths, computeCoreIdentity.hpp:48-92): contigs
     shorter than frag_len are excluded, the others truncated down to a
     multiple of frag_len."""
-    total = 0
-    for _, seq in read_sequences(path):
-        n = len(seq)
-        if n >= frag_len:
-            total += (n // frag_len) * frag_len
-    return total
+    n = contig_lengths(path)
+    return int((n[n >= frag_len] // frag_len).sum()) * frag_len

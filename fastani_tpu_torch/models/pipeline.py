@@ -40,17 +40,20 @@ workload before its loop (``autotune_hits_cap``).
 Each path records its job's spans and counters (``utils/spans.py``):
 ``job``; ``index_build``; ``mapper_init`` (``mapper.tables``,
 ``query_plan``, ``autotune``); ``map_loop`` (a ``batch`` span a batch
-with ``batch.make``, ``query.load`` whenever a query genome is parsed,
+with ``batch.make``, ``query.load`` whenever a query genome is cut,
 and the map step's and CGI's spans, then ``cgi.finalize``,
 ``map_finish`` with ``map_finish.read`` and a ``redo`` a redone query
 genome; on the exact path ``batch.collect``, ``fold`` and ``visual``);
 ``write`` (``write.results``, ``write.lengths``, ``write.tsv``,
-``write.matrix``).  The ``stats`` phase seconds (``t_index_build``,
-``t_mapper_init``, ``t_autotune``, ``t_map_fold``, ``t_map``,
-``t_fold``, ``t_visual``, ``t_write``) are their spans' summed
-durations.  With ``--profile DIR`` (``params.profile_dir``) the whole job
-runs under ``torch.profiler`` (``profiled``), which writes one Chrome
-trace, ``DIR/job.pt.trace.json``, every span in it as a range beside
+``write.matrix``).  Each path parses a genome file once a job: the job
+opens the reader's memo (``io.fasta.memo``), which the index build
+fills, so the batch plan, the batches' loads and the write's genome
+lengths take the contigs from it.  The ``stats`` phase seconds
+(``t_index_build``, ``t_mapper_init``, ``t_autotune``, ``t_map_fold``,
+``t_map``, ``t_fold``, ``t_visual``, ``t_write``) are their spans'
+summed durations.  With ``--profile DIR`` (``params.profile_dir``) the
+whole job runs under ``torch.profiler`` (``profiled``), which writes one
+Chrome trace, ``DIR/job.pt.trace.json``, every span in it as a range beside
 the device's kernels.
 The multi-device runner (``parallel/runner.py``) reuses the pieces:
 ``tuned_mapper``, ``map_batch_cgi``, ``read_stacks``, ``redo_queries``,
@@ -75,7 +78,7 @@ from fastani_tpu_torch.config import Parameters, scale_caps
 from fastani_tpu_torch.index.sketch import ReferenceIndex
 from fastani_tpu_torch.io import fasta
 from fastani_tpu_torch.models import ani, device_cgi, glue, jitmap, output
-from fastani_tpu_torch.ops import cuda, hashing
+from fastani_tpu_torch.ops import cuda
 from fastani_tpu_torch.ops.cuda import resolve_device
 from fastani_tpu_torch.ops.stats import identities_for
 from fastani_tpu_torch.utils import spans
@@ -91,48 +94,61 @@ class QueryFragments:
     vis_offsets: np.ndarray     # (n_meta,) int64
 
 
-def load_query_fragments(path: str, params: Parameters) -> QueryFragments:
-    """Cut one query genome into (F, frag_len) uppercased rows: contigs
-    shorter than the fragment length (or w, k) give no fragment, only a
-    metadata entry; each other contig gives len // frag_len fragments, the
-    last one's metadata length holding the remainder (computeMap.hpp:
-    140-167)."""
+def fragment_plan(lengths: np.ndarray, params: Parameters):
+    """One query genome's batch plan from its contig lengths alone: its
+    fragment count and its .visual offsets (``load_query_fragments``'
+    ``total_fragments`` and ``vis_offsets``).  A contig shorter than the
+    fragment length (or w, k) gives one metadata entry of its length; each
+    other contig gives len // frag_len entries of frag_len, the last one
+    holding the remainder too (computeMap.hpp:140-167)."""
     l = params.frag_len
-    k, w = params.kmer_size, params.window_size
-    blocks: List[np.ndarray] = []
-    lens: List[np.ndarray] = []
-    for _, seq in fasta.read_sequences(path):
-        L = len(seq)
-        if L < w or L < k or L < l:
-            lens.append(np.array([L], np.int64))
-            continue
-        fc = L // l
-        blocks.append(hashing.upper_np(seq[: fc * l]).reshape(fc, l))
-        ln = np.full(fc, l, np.int64)
-        ln[-1] = l + L % l
-        lens.append(ln)
-    frags = np.concatenate(blocks) if blocks else np.zeros((0, l), np.uint8)
-    lens_all = np.concatenate(lens) if lens else np.zeros(0, np.int64)
-    return QueryFragments(frags, np.arange(len(frags), dtype=np.int32),
-                          len(frags), np.cumsum(lens_all) - lens_all)
+    L = np.asarray(lengths, np.int64)
+    cut = (L >= params.window_size) & (L >= params.kmer_size) & (L >= l)
+    entries = np.where(cut, L // l, 1)
+    meta = np.repeat(np.where(cut, l, L), entries)
+    meta[(np.cumsum(entries) - 1)[cut]] = l + L[cut] % l
+    return int(entries[cut].sum()), np.cumsum(meta) - meta
+
+
+def load_query_fragments(path: str, params: Parameters) -> QueryFragments:
+    """Cut one query genome into (F, frag_len) uppercased rows, each
+    contig that ``fragment_plan`` cuts into len // frag_len rows (a view
+    of the reader's bytes where the genome has one such contig)."""
+    l = params.frag_len
+    recs = fasta.contigs(path)
+    n, vis = fragment_plan(recs.lengths, params)
+    blocks = [s[: len(s) // l * l].reshape(-1, l) for s in recs.seqs
+              if len(s) >= max(l, params.window_size, params.kmer_size)]
+    if len(blocks) == 1:
+        frags = blocks[0]
+    else:
+        frags = (np.concatenate(blocks) if blocks
+                 else np.zeros((0, l), np.uint8))
+    return QueryFragments(frags, np.arange(n, dtype=np.int32), n, vis)
 
 
 class FragmentStream:
-    """Global-row view over the query genomes, parsed once for the batch
-    plan (fragment counts and .visual metadata) and reloaded on demand
-    while batches consume them (only the genomes under the current batch
-    stay in host memory)."""
+    """Global-row view over the query genomes: the batch plan (fragment
+    counts and .visual metadata) from their contig lengths, each genome
+    cut into fragments on demand while batches consume it (only the
+    genomes under the current batch stay cut).  In a job the reader's
+    memo (``io.fasta.memo``) gives the lengths and the bytes, so the plan
+    and the loads parse nothing the index build parsed; a genome the
+    stream has passed gives its bytes back (``evict_up_to``)."""
 
     def __init__(self, paths, params: Parameters):
         self.paths = list(paths)
         self.params = params
         self._cache: Dict[int, QueryFragments] = {}
+        # each path's last place: a path listed twice keeps its bytes
+        self._last = {p: q for q, p in enumerate(self.paths)}
+        self._passed = 0
         self.counts, self._vis = [], []
         with spans.span("query_plan"):
             for p in self.paths:
-                qf = load_query_fragments(p, params)
-                self.counts.append(qf.total_fragments)
-                self._vis.append(qf.vis_offsets)
+                n, vis = fragment_plan(fasta.contig_lengths(p), params)
+                self.counts.append(n)
+                self._vis.append(vis)
         self.offsets = np.concatenate([[0], np.cumsum(self.counts)]
                                       ).astype(np.int64)
         self.F = int(self.offsets[-1])
@@ -154,8 +170,14 @@ class FragmentStream:
         return self._cache[qno]
 
     def evict_up_to(self, qno: int) -> None:
+        """Drop the fragments of the genomes before ``qno``, and the
+        memo's bytes of those listed no later."""
         for q in [q for q in self._cache if q < qno]:
             del self._cache[q]
+        for q in range(self._passed, qno):
+            if self._last[self.paths[q]] == q:
+                fasta.release(self.paths[q])
+        self._passed = max(self._passed, qno)
 
     def make_batch(self, b0: int, B: int):
         """Rows [b0, b0 + B), zero-padded past F (the JAX package's
@@ -663,7 +685,8 @@ def run_fast(params: Parameters, device="cuda",
     job's spans and counters."""
     dev = resolve_device(device)
     stats = {} if stats is None else stats
-    with profiled(params, dev, stats, log), spans.job(stats):
+    with profiled(params, dev, stats, log), spans.job(stats), \
+            fasta.memo(params.query_sequences):
         params.finalize()
         # --loadIndex sets the reference list, so the index comes before
         # anything reads the reference count
@@ -709,7 +732,8 @@ def run(params: Parameters, device="cuda",
     present.  Returns the CGI rows (before the minFraction gate)."""
     dev = resolve_device(device)
     stats = {} if stats is None else stats
-    with profiled(params, dev, stats, log), spans.job(stats):
+    with profiled(params, dev, stats, log), spans.job(stats), \
+            fasta.memo(params.query_sequences):
         params.finalize()
         index = reference_index(params, dev, stats, log,
                                 load_path=params.load_index,

@@ -41,7 +41,9 @@ processes return [].  With ``-s`` each shard is checked on its own
 nothing.  With one shard the fast path tunes hits_cap as ``run_fast``
 does (``pipeline.autotune_hits_cap``).  Each process records its job's
 spans and counters (``utils/spans.py``) as ``pipeline``'s paths do, the
-shared helpers' spans included; ``stats`` takes this process's.
+shared helpers' spans included; ``stats`` takes this process's.  Each
+process keeps its own memo of parsed files (``io.fasta.memo``), so it
+parses once each file it reads.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ import torch
 
 from fastani_tpu_torch.config import Parameters, scale_caps
 from fastani_tpu_torch.index.sketch import ReferenceIndex
+from fastani_tpu_torch.io import fasta
 from fastani_tpu_torch.models import ani, device_cgi, jitmap, pipeline
 from fastani_tpu_torch.parallel import distributed, mesh as pmesh
 from fastani_tpu_torch.utils import spans
@@ -173,7 +176,8 @@ def run_sharded_fused(params: Parameters, n_r: Optional[int] = None,
     returns the CGI rows; the other processes return []."""
     stats = {} if stats is None else stats
     with distributed.session(coordinator, num_processes, process_id,
-                             device) as dev, spans.job(stats):
+                             device) as dev, spans.job(stats), \
+            fasta.memo(params.query_sequences):
         run = _prepare(params, n_r, n_q, dev, stats, log)
         plan, stream = run.plan, run.stream
         n_queries = len(stream.paths)
@@ -283,7 +287,8 @@ def run_sharded(params: Parameters, n_r: Optional[int] = None,
     files and returns the CGI rows; the other processes return []."""
     stats = {} if stats is None else stats
     with distributed.session(coordinator, num_processes, process_id,
-                             device) as dev, spans.job(stats):
+                             device) as dev, spans.job(stats), \
+            fasta.memo(params.query_sequences):
         run = _prepare(params, n_r, n_q, dev, stats, log)
         plan, stream = run.plan, run.stream
         contigs = {}

@@ -2,9 +2,9 @@
 the CPU, over the 150 kbp golden fixture (both genomes against both, in
 batches of 64 fragments): the span tree of a job, the ``stats`` phase
 seconds as their spans' sums, the spans as profiler ranges, nothing
-entered or counted on the device without a profiler, the FASTA parses by
-purpose, ``l2.window_entries`` against a recount, and the exact path's
-spans."""
+entered or counted on the device without a profiler, the FASTA parses and
+memo hits by purpose, ``l2.window_entries`` against a recount, and the
+exact path's spans."""
 
 import collections
 
@@ -213,16 +213,20 @@ def test_without_a_profiler_nothing_is_entered_or_counted_on_the_device(
 
 
 def test_fasta_parses_by_purpose(jobs, genomes):
+    # one parse a file a job, the index build's; the batch plan, the
+    # batches' loads and the write's lengths take the reader's memo
     _, paths = genomes
     c = jobs["plain"][0]["counters"]
-    for purpose in ("index.parse", "query_plan", "query.load",
-                    "write.lengths"):
-        assert c[f"fasta.parses[{purpose}]"] == len(paths), purpose
-    assert c["fasta.parses"] == 4 * len(paths) and c["fasta.files"] == 2
-    assert sorted(c) == sorted(["fasta.parses", "fasta.files",
-                                "l2.event_slots"] + [
-        f"fasta.parses[{p}]" for p in ("index.parse", "query_plan",
-                                       "query.load", "write.lengths")])
+    assert c["fasta.parses[index.parse]"] == len(paths)
+    readers = ("query_plan", "query.load", "write.lengths")
+    for purpose in readers:
+        assert c[f"fasta.memo_hits[{purpose}]"] == len(paths), purpose
+    assert c["fasta.parses"] == len(paths) and c["fasta.files"] == 2
+    assert c["fasta.memo_hits"] == len(readers) * len(paths)
+    assert sorted(c) == sorted(
+        ["fasta.parses", "fasta.files", "fasta.parses[index.parse]",
+         "fasta.memo_hits", "l2.event_slots"]
+        + [f"fasta.memo_hits[{p}]" for p in readers])
 
 
 def test_window_entries_equal_a_recount_from_locate_units(jobs):
@@ -260,4 +264,4 @@ def test_exact_path_spans(exact):
         == names["batch.n_live_read"] == n
     assert names["fold"] == names["visual"] == 2
     assert "t_rows" not in stats
-    assert stats["counters"]["fasta.parses"] == 8
+    assert stats["counters"]["fasta.parses"] == 2
