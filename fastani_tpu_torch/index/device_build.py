@@ -5,25 +5,33 @@
     2. K1 winnow the rows (ops/winnow.py), many contigs per launch — the
        emit selection carries across a contig's rows inside the kernel;
     3. K2 compact each 1024-position piece of the output to ``_CAP_R``
-       slots, with its count (ops/compact.py);
-    4. assemble: exclusive cumsum of the piece counts and one scatter into
-       arrays padded to ``out_size`` (hash UMAX, seqId/wpos 2^30);
-    5. stable sort by hash: the lookup (occ) view and ``occ_order``.
+       slots, with its count (ops/compact.py), and keep only each piece's
+       filled slots: a flush holds its entries, not its padded pieces;
+    4. assemble: the flushes' entries end to end (their order is the
+       exclusive cumsum of the piece counts) in arrays padded to
+       ``out_size`` (hash UMAX, seqId/wpos 2^30);
+    5. stable sort by hash, on 32-bit keys: the lookup (occ) view and
+       ``occ_order``.
 
 The result equals the JAX package's device build array for array (same
 entries, same padding, same ``out_size``).  Overflow is checked on every
 build: a piece with more than ``_CAP_R`` emits triggers a rebuild with the
 cap at the piece length, which cannot overflow, and an ``out_size`` too
 small for the entries is grown to fit (replaces skch::Sketch::build+index,
-winSketch.hpp:124-193).
+winSketch.hpp:124-193).  The build's device memory stays near the bytes of
+the arrays it returns (40 a slot): the flushes' entries (12 bytes each),
+then the padded arrays, then the sort's key, order and buffers.
 
 Spans (``utils/spans.py``): ``index.parse`` a reference file (the FASTA
 read and uppercase, ``io.fasta.contigs``, which a job's memo keeps for
 its later readers, so a rebuild parses only the files whose bytes it did
 not keep, and ``segment_rows``), ``index.flush`` a winnow launch
 (the upload, K1 and K2 enqueued) with ``index.overflow_read`` (the wait on
-its overflow flag) under it, ``index.assemble`` (step 4, the entry total's
-read and step 5), and ``index.rebuild`` around a rebuild.
+its overflow flag) and ``index.place`` (its entries compacted) under it,
+``index.assemble`` (steps 4 and 5, waited for on the card) with
+``index.sort`` (step 5) under it, and ``index.rebuild`` around a
+rebuild.  Counter ``index.bytes``: the bytes of the returned index's
+device arrays.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ _CAP_R = _ROW // 4        # per-piece minimizer cap (density ~2/(w+1))
 _SEG = 17 * _ROW          # scored positions per segment row
 _FLUSH_ROWS = 2048        # segment rows per winnow launch (~35 Mbp)
 _MARGIN = 2048            # sentinel entries past the last (L2 window slices)
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
 
 
 def _pow2(x: int, floor: int = 128) -> int:
@@ -73,6 +82,10 @@ def build_device(cls, params: Parameters,
         # the cap at the piece length, which cannot overflow
         with spans.span("index.rebuild"):
             index = _build(cls, params, ref_files, device, _ROW)
+    spans.gauge("index.bytes", sum(
+        t.numel() * t.element_size() for t in (
+            index.mi_hash, index.mi_seqid, index.mi_wpos, index.occ_hash,
+            index.occ_seqid, index.occ_wpos, index.occ_order)))
     return index
 
 
@@ -83,13 +96,15 @@ def _build(cls, params, ref_files, device, cap: int):
     k, w = params.kmer_size, params.window_size
     metadata: List[ContigInfo] = []
     seq_by_file: List[int] = []
-    pieces = []                  # (hash (P, cap), wpos (P, cap), count (P,))
-    piece_sid = []               # contig id per piece, host
+    # each flush's entries in build order, compacted to their true count:
+    # (hash int32 words, wpos int32, seqId int32), each (n,)
+    parts = []
+    n_pieces = 0
     pend_rows, pend_sid, pend_base, pend_len = [], [], [], []
     overflow = False
 
     def flush():
-        nonlocal overflow
+        nonlocal overflow, n_pieces
         if not pend_rows:
             return
         with spans.span("index.flush"):
@@ -103,15 +118,20 @@ def _build(cls, params, ref_files, device, cap: int):
             per = _SEG // _ROW
             e2 = emit.reshape(-1, _ROW)
             cnt = e2.sum(dim=1)
-            # the hashes are int32 words; they widen to int64 u32 values
-            # only after compaction (~2/(w+1) of the positions)
             hc, wc = compact.compact_rows(
                 e2, [(h.reshape(-1, _ROW), -1), (wp.reshape(-1, _ROW), PINF)],
                 width=cap)
-            pieces.append((hc.to(torch.int64) & UMAX, wc, cnt))
-            piece_sid.append(np.repeat(sid, per))
             with spans.span("index.overflow_read"):
                 overflow |= bool((cnt > cap).any())
+            with spans.span("index.place"):
+                # a piece's first min(count, cap) slots hold its entries:
+                # row-major, they are the entries in build order
+                keep = (torch.arange(cap, device=device)[None, :]
+                        < cnt.clamp(max=cap)[:, None])
+                psid = torch.as_tensor(np.repeat(sid, per), device=device)
+                parts.append((hc[keep], wc[keep],
+                              psid[:, None].expand(keep.shape)[keep]))
+            n_pieces += len(cnt)
         pend_rows.clear()
         pend_sid.clear()
         pend_base.clear()
@@ -143,56 +163,66 @@ def _build(cls, params, ref_files, device, cap: int):
         seq_by_file.append(seq_counter)
     flush()
     with spans.span("index.assemble"):
-        return _assemble(cls, device, cap, w, metadata, seq_by_file, pieces,
-                         piece_sid, overflow)
+        return _assemble(cls, device, w, metadata, seq_by_file, parts,
+                         max(n_pieces, 1), overflow)
 
 
-def _assemble(cls, device, cap: int, w: int, metadata, seq_by_file, pieces,
-              piece_sid, overflow: bool):
-    """Steps 4 and 5: the pieces' entries scattered into arrays padded to
-    ``out_size`` and sorted by hash; returns the index."""
-    if pieces:
-        h = torch.cat([p[0] for p in pieces])
-        wp = torch.cat([p[1] for p in pieces])
-        cnt = torch.cat([p[2] for p in pieces]).to(torch.int64)
-        sid = torch.as_tensor(np.concatenate(piece_sid), device=device)
-    else:
-        h = torch.full((1, cap), UMAX, dtype=torch.int64, device=device)
-        wp = torch.full((1, cap), PINF, dtype=torch.int32, device=device)
-        cnt = torch.zeros(1, dtype=torch.int64, device=device)
-        sid = torch.zeros(1, dtype=torch.int32, device=device)
-    cnt = cnt.clamp(max=cap)
-    total = int(cnt.sum())
+def _assemble(cls, device, w: int, metadata, seq_by_file, parts,
+              n_pieces: int, overflow: bool):
+    """Steps 4 and 5: the flushes' entries laid end to end in arrays
+    padded to ``out_size`` (each flush's part freed as it is copied) and
+    sorted by hash; returns the index."""
+    total = sum(len(p[0]) for p in parts)
 
     # output size from the total sequence length: winnow density is close
     # to 2/(w+1), so bases * density * 1.15 + slack bounds the entry count
     # (the JAX package's formula, so both builds pad alike); the margin
     # past the last entry lets L2 read contiguous entry windows
-    P = h.shape[0]
     total_bases = sum(c.length for c in metadata)
     est = int(total_bases * (2.0 / (w + 1)) * 1.15) + 4096
-    out_size = min(_pow2(est), _pow2(_pow2(P, floor=8) * _CAP_R + _MARGIN))
+    out_size = min(_pow2(est),
+                   _pow2(_pow2(n_pieces, floor=8) * _CAP_R + _MARGIN))
     if total > out_size - _MARGIN:        # undersized estimate: grow it
         out_size = _pow2(total + _MARGIN)
 
-    j = torch.arange(cap, device=device)[None, :]
-    first = torch.cumsum(cnt, 0) - cnt
-    dst = torch.where(j < cnt[:, None], first[:, None] + j,
-                      torch.full_like(j, out_size)).reshape(-1)
-
-    def scatter(vals, fill, dtype):
-        out = torch.full((out_size + 1,), fill, dtype=dtype, device=device)
-        out.scatter_(0, dst, vals.reshape(-1).to(dtype))
-        return out[:out_size]
-
-    mi_hash = scatter(h, UMAX, torch.int64)
-    mi_wpos = scatter(wp, PINF, torch.int32)
-    mi_sid = scatter(sid[:, None].expand(P, cap), PINF, torch.int32)
-    occ_hash, order = torch.sort(mi_hash, stable=True)   # pads stay last
+    full = lambda fill, dtype: torch.full((out_size,), fill, dtype=dtype,
+                                          device=device)
+    mi_hash = full(UMAX, torch.int64)
+    mi_wpos = full(PINF, torch.int32)
+    mi_sid = full(PINF, torch.int32)
+    # the sort key: the u32 hash with its top bit flipped, an int32 whose
+    # signed order is the hash's order (pads UMAX -> int32 max, last)
+    key = full(_I32_MAX, torch.int32)
+    off = 0
+    parts.reverse()
+    while parts:
+        h, wp, sid = parts.pop()
+        end = off + len(h)
+        mi_hash[off:end] = h.to(torch.int64) & UMAX
+        key[off:end] = h ^ _I32_MIN
+        mi_wpos[off:end] = wp
+        mi_sid[off:end] = sid
+        off = end
+    _wait(key)
+    with spans.span("index.sort"):
+        skey, order = torch.sort(key, stable=True)
+        del key
+        occ_hash = skey.to(torch.int64)
+        del skey
+        occ_hash -= _I32_MIN
+        occ_sid, occ_wpos = mi_sid[order], mi_wpos[order]
+        _wait(occ_wpos)
     return cls(metadata=metadata,
                sequences_by_file=np.asarray(seq_by_file, np.int32),
                mi_hash=mi_hash, mi_seqid=mi_sid, mi_wpos=mi_wpos,
-               occ_hash=occ_hash, occ_seqid=mi_sid[order],
-               occ_wpos=mi_wpos[order], occ_order=order, n_entries=total,
+               occ_hash=occ_hash, occ_seqid=occ_sid, occ_wpos=occ_wpos,
+               occ_order=order, n_entries=total,
                freq_threshold=int(np.iinfo(np.int32).max),
                overflow=overflow)
+
+
+def _wait(t: torch.Tensor) -> None:
+    """Wait for the card's queued work, so that the span around it holds
+    its device time (the caller waits for the index anyway)."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)

@@ -20,6 +20,8 @@ has no conditional node).
 Spans (``utils/spans.py``) of a dispatched batch: ``batch.upload`` (with
 ``batch.upload_wait``, the wait for a pinned input set's last copy),
 ``batch.capture`` (the first batch on a card) and ``batch.n_live_read``;
+counter ``l1.key_bits`` (32 or 64: the L1 hit keys' width, set where a
+``Mapper`` makes its config);
 counter ``l2.event_slots`` (each chunk's units times its event row
 width, 2 x l2_entry_cap + 1), and, while tracing, ``l2.window_entries``
 (``window_entries``, under span ``l2.window_count``: the traced job's
@@ -471,6 +473,7 @@ class Mapper:
         self.cfg = MapperConfig.from_params(params, index.freq_threshold,
                                             unit_factor, unit_chunk,
                                             index=index)
+        spans.gauge("l1.key_bits", 64 if self.cfg.wpos_bits is None else 32)
         dev = index.device
         M = index.n_entries
         # device builds arrive padded with >= 2048 sentinels past the true

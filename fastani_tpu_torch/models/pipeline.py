@@ -38,7 +38,8 @@ saved with ``--saveIndex``.  ``run_fast`` shrinks hits_cap to the
 workload before its loop (``autotune_hits_cap``).
 
 Each path records its job's spans and counters (``utils/spans.py``):
-``job``; ``index_build``; ``mapper_init`` (``mapper.tables``,
+``job``; ``index_build`` (counters ``index.bytes``,
+``index.peak_bytes``); ``mapper_init`` (``mapper.tables``,
 ``query_plan``, ``autotune``); ``map_loop`` (a ``batch`` span a batch
 with ``batch.make``, ``query.load`` whenever a query genome is cut,
 and the map step's and CGI's spans, then ``cgi.finalize``,
@@ -547,7 +548,8 @@ def reference_index(params: Parameters, dev: torch.device, stats: dict,
     ``ref_files`` (default ``params.ref_sequences``; the build checks its
     overflow and rebuilds); then saved to ``save_path``.  Callers read the
     reference count only after this.  Span ``index_build``; its seconds,
-    summed over the job's builds, in ``stats["t_index_build"]``."""
+    summed over the job's builds, in ``stats["t_index_build"]``; counter
+    ``index.peak_bytes``, the device allocator's peak at its end."""
     t0 = time.time()
     with spans.span("index_build"):
         if load_path:
@@ -557,6 +559,10 @@ def reference_index(params: Parameters, dev: torch.device, stats: dict,
             index = ReferenceIndex.build_device(params, ref_files, device=dev)
             how = "sketched"
         _sync(dev)
+        # the allocator's peak so far, which the build's transients set
+        # (read, never reset: the caller owns the peak); 0 off a card
+        spans.gauge("index.peak_bytes", torch.cuda.max_memory_allocated(dev)
+                    if dev.type == "cuda" else 0)
     stats["t_index_build"] = spans.seconds("index_build")
     log(f"INFO, fastani_tpu_torch, reference {how} on {dev} in "
         f"{time.time() - t0:.2f}s: {index.n_entries} minimizers "

@@ -8,7 +8,8 @@ opens its recording with ``job(stats)``; inside it
     spans.count("fasta.parses")
 
 record a span (its name, its start and end on ``time.perf_counter_ns``,
-the index of its parent, a few integer attributes) and add to a counter.
+the index of its parent, a few integer attributes) and add to a counter
+(``gauge`` sets one instead: a reading taken once a job).
 At the job's end the recording is handed out as ``stats["spans"]`` (one
 dict a span, in the order they opened: ``name``, ``start_ns``,
 ``end_ns``, ``parent``, -1 for the ``job`` span, and ``attrs``) and
@@ -112,6 +113,13 @@ def count(name: str, n: int = 1, by_span: bool = False) -> None:
     if by_span and rec.open:
         key = f"{name}[{rec.spans[rec.open[-1]]['name']}]"
         c[key] = c.get(key, 0) + n
+
+
+def gauge(name: str, value: int) -> None:
+    """Set counter ``name`` to ``value``: the job's last call holds."""
+    rec = _CURRENT.get()
+    if rec is not None:
+        rec.counters[name] = int(value)
 
 
 def distinct(name: str, key) -> None:
