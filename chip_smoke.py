@@ -1512,7 +1512,7 @@ def batch_host_calls(torch, paths) -> dict:
         t0 = time.time()
         with (eager_mappers() if mode == "eager" else
               contextlib.nullcontext()):
-            mapper = pipeline._make_mapper(p, index)
+            mapper = pipeline._make_mapper(p, index, index.device)
         cgi = device_cgi.StreamingCGI(index, p, len(paths), len(paths),
                                       n_slots=4, frag_cap=B)
         counts = torch.zeros((3, len(jitmap.COUNT_NAMES)), dtype=torch.int64,

@@ -38,9 +38,11 @@
 // fills the scheduler while it waits.  Design: one thread walks one unit,
 // 32 units to a block of one warp, so the chain runs 32 units at once and
 // the time is set by the chain's length, not by the unit count (up to one
-// block per SM).  Per-unit state lives in shared memory, diff (high 16
-// bits, |diff| <= ncap) and pres (low 16 bits) packed in one word per rank,
-// laid out [rank][lane]: each lane's random rank falls in its own bank.
+// full wave of blocks, which is what the map step launches:
+// fa_walk_blocks_per_sm, models/jitmap.py::chunk_width).  Per-unit state
+// lives in shared memory, diff (high 16 bits, |diff| <= ncap) and pres
+// (low 16 bits) packed in one word per rank, laid out [rank][lane]: each
+// lane's random rank falls in its own bank.
 // j*, P, cnt, best, posf and posl stay in registers, and the step is
 // branch-free.  The event rows are (U, T) row-major, so a lane's own row is
 // strided for the warp: tiles of 32 units x 32 events of the six arrays
@@ -267,6 +269,13 @@ __global__ void __launch_bounds__(kLanes)
   }
 }
 
+// K5's dynamic shared memory at sketch width scap: the staged tiles and
+// one word a rank and lane
+size_t walk_smem(int scap) {
+  return sizeof(int) *
+         (kBufs * (size_t)kTileWords + (size_t)(scap + 1) * kLanes);
+}
+
 }  // namespace
 
 // six (U, T) int32 event arrays (dn, dq, jr, jm, scored, pos), s_u and n_ev
@@ -280,8 +289,7 @@ extern "C" int fa_walk(const void* dn, const void* dq, const void* jr,
   Events ev;
   const void* arrs[kArrays] = {dn, dq, jr, jm, scored, pos};
   for (int a = 0; a < kArrays; ++a) ev.a[a] = static_cast<const int*>(arrs[a]);
-  const size_t smem = sizeof(int) * (kBufs * (size_t)kTileWords +
-                                     (size_t)(scap + 1) * kLanes);
+  const size_t smem = walk_smem(scap);
   cudaError_t err = cudaFuncSetAttribute(
       walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -291,4 +299,15 @@ extern "C" int fa_walk(const void* dn, const void* dq, const void* jr,
       scap, static_cast<int*>(best), static_cast<int*>(posf),
       static_cast<int*>(posl));
   return (int)cudaGetLastError();
+}
+
+// the K5 blocks (of kLanes units each) one SM of the current device holds
+// at once at sketch width scap, by the occupancy calculator, into *blocks
+extern "C" int fa_walk_blocks_per_sm(int scap, int* blocks) {
+  const size_t smem = walk_smem(scap);
+  cudaError_t err = cudaFuncSetAttribute(
+      walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, walk_kernel, kLanes, smem);
 }

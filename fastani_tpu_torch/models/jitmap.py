@@ -1,7 +1,8 @@
 """The mapping step (counterpart of ``fastani_tpu/models/jitmap.py``).
 
 One fragment batch against the device-resident index: sketch, L1, unit
-compaction to ``unit_cap``, L2 over chunks of ``unit_chunk`` units, the
+compaction to ``unit_cap``, L2 over chunks of ``unit_chunk`` units (on a
+card one full wave of K5 blocks, ``chunk_width``), the
 identity gate, and the packed valid-first block the device CGI folds.
 The step runs as three stages over one dict of buffers: ``stage_pre``
 (everything before L2), ``stage_chunk`` (one L2 chunk at a device-held
@@ -22,6 +23,8 @@ Spans (``utils/spans.py``) of a dispatched batch: ``batch.upload`` (with
 ``batch.capture`` (the first batch on a card) and ``batch.n_live_read``;
 counter ``l1.key_bits`` (32 or 64: the L1 hit keys' width, set where a
 ``Mapper`` makes its config);
+counter ``l2.chunks`` (the L2 chunks run) and gauge ``l2.chunk_units``
+(their width, ``chunk_width``);
 counter ``l2.event_slots`` (each chunk's units times its event row
 width, 2 x l2_entry_cap + 1), and, while tracing, ``l2.window_entries``
 (``window_entries``, under span ``l2.window_count``: the traced job's
@@ -106,11 +109,32 @@ class MapperConfig:
             frag_len=params.frag_len, sketch_cap=params.sketch_cap,
             hits_cap=params.hits_cap, cand_cap=params.cand_cap,
             l2_entry_cap=params.l2_entry_cap,
-            # never wider than the candidate grid (F x cand_cap) itself
-            unit_cap=min(params.frag_batch * unit_factor,
-                         params.frag_batch * params.cand_cap),
+            unit_cap=unit_cap_for(params, unit_factor),
             unit_chunk=unit_chunk, freq_threshold=freq_threshold,
             wpos_bits=wpos_bits)
+
+
+def unit_cap_for(params, unit_factor: int) -> int:
+    """The L2 work units a batch of ``params.frag_batch`` fragments holds
+    at ``unit_factor`` units a fragment, never more than the candidate
+    grid (F x cand_cap) itself."""
+    return min(params.frag_batch * unit_factor,
+               params.frag_batch * params.cand_cap)
+
+
+def chunk_width(dev: torch.device, unit_cap: int, sketch_cap: int,
+                narrow: int) -> int:
+    """The units of one L2 chunk, and so of one K5 launch.  On a card, one
+    full wave of K5 blocks: the SMs times the blocks an SM holds at K5's
+    shared memory for ``sketch_cap``, times the 32 units of a block, at
+    most ``unit_cap``.  K5's time is set by the longest event chain of its
+    units, not by their number, so a narrower launch takes as long and
+    leaves SMs idle.  On the CPU ``narrow``, the JAX package's chunk."""
+    if dev.type != "cuda":
+        return narrow
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = sms * l2walk.walk_blocks_per_sm(sketch_cap)
+    return min(blocks * l2walk.WALK_BLOCK_UNITS, unit_cap)
 
 
 @dataclasses.dataclass
@@ -210,13 +234,16 @@ def window_entries(cfg: MapperConfig, bufs: dict) -> torch.Tensor:
 def live_chunks(cfg: MapperConfig, bufs: dict) -> int:
     """``n_chunks`` of a batch whose ``stage_pre`` has run, the read of
     ``n_live`` as span ``batch.n_live_read``, with the batch's L2 counters
-    (``l2.window_entries`` summed on the device while tracing)."""
+    (``l2.chunks``, ``l2.chunk_units``, ``l2.event_slots``, and
+    ``l2.window_entries`` summed on the device while tracing)."""
     if spans.tracing():
         with spans.span("l2.window_count"):
             spans.add_device("l2.window_entries", window_entries(cfg, bufs))
     with spans.span("batch.n_live_read"):
         n_live = int(bufs["n_live"])
     n = n_chunks(cfg, n_live)
+    spans.count("l2.chunks", n)
+    spans.gauge("l2.chunk_units", cfg.unit_chunk)
     spans.count("l2.event_slots",
                 n * cfg.unit_chunk * (2 * cfg.l2_entry_cap + 1))
     return n

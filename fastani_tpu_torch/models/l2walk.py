@@ -29,6 +29,8 @@ does O(1) work per event (``walk_recurrence`` restates its recurrence).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from fastani_tpu_torch.ops import cuda, sort
@@ -42,6 +44,7 @@ MAX_SCAP = 1023      # the packed event records hold ranks in 10 bits
 MAX_NCAP = 1022
 # the six (U, T) int32 event rows, in the order K5 takes them
 _EVENTS = ("dn", "dq", "jr", "jm", "scored", "pos")
+WALK_BLOCK_UNITS = 32   # units a K5 block walks, one a lane of one warp
 
 
 def prev_next_global(mi_hash, mi_sid, order):
@@ -92,6 +95,9 @@ def build_events(qh, s, frag_of_unit, u_sid, u_valid, b0, eL, mi_hash,
         qh, s, frag_of_unit, u_sid, u_valid, b0, eL, mi_hash, mi_sid,
         mi_wpos, prev_g, nxt_g, C, ncap)
     keys, rec = sort.sort_rows_u32_kv(keys0, pay0)
+    # E1's (U, T) rows die once K4 has read them: inside a captured chunk
+    # the graph's pool gives their memory to E2's rows
+    del keys0, pay0
     ev, n_ev = events_scan(keys, rec, sw0, eL_loc, u_valid, lp0, C)
     return ev, s_u, overflow, n_ev
 
@@ -404,6 +410,16 @@ def walk(ev: dict, s_u: torch.Tensor, n_ev: torch.Tensor, scap: int):
         cuda.check(err, "walk")
         cuda.LAUNCHES["walk"] += 1
     return out[0], out[1], out[2]
+
+
+def walk_blocks_per_sm(scap: int) -> int:
+    """The K5 blocks one SM of the current card holds at once at sketch
+    width ``scap`` (the occupancy calculator at K5's shared memory for
+    that width)."""
+    blocks = ctypes.c_int(0)
+    cuda.check(cuda.lib("walk").fa_walk_blocks_per_sm(
+        scap, ctypes.addressof(blocks)), "walk occupancy")
+    return blocks.value
 
 
 def walk_plain(ev: dict, s_u: torch.Tensor, n_ev: torch.Tensor, scap: int):

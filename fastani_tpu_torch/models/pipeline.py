@@ -622,16 +622,21 @@ def tuned_mapper(mapper: "jitmap.Mapper", stream: FragmentStream,
     return mapper
 
 
-def _make_mapper(params: Parameters, index: ReferenceIndex) -> "jitmap.Mapper":
-    """The mapper of both paths, at the caps ``config.scale_caps`` set for
-    the reference count: L2 units for ~1.7 candidate regions per fragment
-    and reference genome, chunks of up to 512 units.  Span
-    ``mapper.tables``."""
+def _make_mapper(params: Parameters, index: ReferenceIndex,
+                 dev: torch.device) -> "jitmap.Mapper":
+    """The mapper of both paths on ``dev``, at the caps
+    ``config.scale_caps`` set for the reference count: L2 units for ~1.7
+    candidate regions per fragment and reference genome, in chunks of one
+    full wave of K5 blocks on a card (``jitmap.chunk_width``), of up to
+    512 units on the CPU.  Span ``mapper.tables``."""
     G = len(params.ref_sequences)
+    uf = max(G + 2, int(1.7 * G) + 8)
     with spans.span("mapper.tables"):
-        return jitmap.Mapper(params, index,
-                             unit_factor=max(G + 2, int(1.7 * G) + 8),
-                             unit_chunk=min(512, params.frag_batch))
+        chunk = jitmap.chunk_width(dev, jitmap.unit_cap_for(params, uf),
+                                   params.sketch_cap,
+                                   min(512, params.frag_batch))
+        return jitmap.Mapper(params, index, unit_factor=uf,
+                             unit_chunk=chunk)
 
 
 def fold_queries(maps: List[dict], genome_of_seq: np.ndarray,
@@ -703,7 +708,7 @@ def run_fast(params: Parameters, device="cuda",
         scale_caps(G, params)
 
         with spans.span("mapper_init"):
-            mapper = _make_mapper(params, index)
+            mapper = _make_mapper(params, index, dev)
             stream = FragmentStream(params.query_sequences, params)
             mapper = tuned_mapper(mapper, stream, params, stats, log)
             _sync(dev)
@@ -757,7 +762,7 @@ def run(params: Parameters, device="cuda",
         final: List[ani.CGIResult] = []
         if sane:
             with spans.span("mapper_init"):
-                mapper = _make_mapper(params, index)
+                mapper = _make_mapper(params, index, dev)
                 stream = FragmentStream(params.query_sequences, params)
                 _sync(dev)
             stats["t_mapper_init"] = spans.seconds("mapper_init")

@@ -69,7 +69,8 @@ _SIGNATURES = {
                + [_P] * 8,
                "fa_events_scan": [_P] * 6 + [_I, _I, _I] + [_P] * 8},
     "walk": {"fa_walk": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                         _P, _P, _P, _P]},
+                         _P, _P, _P, _P],
+             "fa_walk_blocks_per_sm": [_I, _P]},
     "fold": {"fa_fold_rows": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
              "fa_finalize_rows": [_P] * 5 + [_I] * 5 + [_P] * 3},
 }

@@ -76,14 +76,16 @@ def shard_mapper(params: Parameters, index: ReferenceIndex, n_local: int,
                  B_local: int) -> jitmap.Mapper:
     """One shard's map step for slices of B_local rows (its height), in
     the JAX runner's geometry: L2 units for max(4, int(1.7 G_local) + 8)
-    candidate regions a fragment, chunks of min(512, max(8, B_local))
-    units."""
+    candidate regions a fragment, in chunks of one full wave of K5 blocks
+    on a card (``jitmap.chunk_width``), of min(512, max(8, B_local)) units
+    on the CPU."""
     uf = max(4, int(1.7 * n_local) + 8)
-    mapper = jitmap.Mapper(params, index, unit_factor=uf,
-                           unit_chunk=min(512, max(8, B_local)),
+    unit_cap = min(B_local * uf, B_local * params.cand_cap)
+    chunk = jitmap.chunk_width(index.device, unit_cap, params.sketch_cap,
+                               min(512, max(8, B_local)))
+    mapper = jitmap.Mapper(params, index, unit_factor=uf, unit_chunk=chunk,
                            height=B_local)
-    return mapper.with_caps(unit_cap=min(B_local * uf,
-                                         B_local * params.cand_cap))
+    return mapper.with_caps(unit_cap=unit_cap)
 
 
 def _slice_rows(mapper: jitmap.Mapper, frags: torch.Tensor, first: int,

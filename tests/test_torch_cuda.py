@@ -927,3 +927,121 @@ def test_capture_with_host_read_raises(cuda_device, tmp_path, monkeypatch):
     eager = jitmap.Mapper(params, index, unit_factor=8, unit_chunk=24,
                           graphs=False)
     assert int(eager.collect_device(eager.dispatch(*batch))["counts"][0]) > 20
+
+
+@pytest.fixture(scope="module")
+def wave_panel(tmp_path_factory):
+    """12 related 1 Mbp genomes (bench.py's generator) as queries and
+    references at run_fast's caps but the benchmark cells' L2 entry cap,
+    indexed on the card: two batches of
+    2048 fragments, each with several waves of live L2 units; and the
+    card's K5 wave (SMs x K5 blocks an SM x 32 units)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    import chip_smoke as cs
+    from fastani_tpu_torch.config import scale_caps
+
+    dev = torch.device("cuda")
+    paths = cs.build_workload(np, tmp_path_factory.mktemp("wave"), 12,
+                              1_000_000)
+    p = Parameters(query_sequences=paths, ref_sequences=paths).finalize()
+    scale_caps(len(paths), p)
+    p.l2_entry_cap = 1016    # the cells' T 2033 (scale_caps: past 24 genomes)
+    index = ReferenceIndex.build_device(p, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    wave = sms * l2walk.walk_blocks_per_sm(p.sketch_cap) * 32
+    return p, index, pipeline.FragmentStream(paths, p), wave
+
+
+def test_graphs_at_the_wave_match_512_unit_chunks(wave_panel):
+    """``_make_mapper`` on the card takes one full wave of K5 blocks a
+    chunk; its graphed map step, batch by batch, bit-equal to the same
+    step at 512-unit chunks in every output; K5 launches
+    ceil(n_live / width) times a batch (the first batch once more: its
+    warm-up's eager chunk)."""
+    from fastani_tpu_torch.ops import cuda
+
+    p, index, stream, wave = wave_panel
+    wide = pipeline._make_mapper(p, index, index.device)
+    sms = torch.cuda.get_device_properties(index.device).multi_processor_count
+    assert wave % (32 * sms) == 0 and wave >= 32 * sms
+    assert wide.cfg.unit_chunk == min(wave, wide.cfg.unit_cap) == wave
+    narrow = wide.with_caps(unit_chunk=512)
+    B = p.frag_batch
+    starts = range(0, stream.F, B)
+    assert len(starts) == 2
+    outs, lives = [], []
+    for mapper in (wide, narrow):
+        outs.append([])
+        for i, b0 in enumerate(starts):
+            before = cuda.LAUNCHES["walk"]
+            out = mapper.collect_device(
+                mapper.dispatch(*stream.make_batch(b0, B)))
+            torch.cuda.synchronize()
+            n_live = int(mapper._step.bufs["n_live"])
+            assert cuda.LAUNCHES["walk"] - before == \
+                -(-n_live // mapper.cfg.unit_chunk) + (i == 0)
+            outs[-1].append({k: v.clone() for k, v in out.items()})
+            lives.append(n_live)
+        assert mapper.graph_stats()["replays"] == len(starts)
+    assert lives[:2] == lives[2:] and min(lives) > 2 * wave
+    for a, b in zip(*outs):
+        for name in jitmap.OUTPUTS:
+            assert torch.equal(a[name], b[name]), name
+    assert int(outs[0][0]["counts"][0]) > 1000
+
+
+def _graph_ms(fn, reps: int = 20) -> float:
+    """Milliseconds a call of ``fn``: CUDA events around one replay of a
+    graph of ``reps`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def test_walk_kernel_at_the_wave_and_at_512(wave_panel):
+    """K5 on the first wave of a real batch's event streams in one launch
+    and in launches of 512 units, both bit-equal to walk_plain; the
+    times of each and K5's bound on these streams (24 bytes and 30
+    operations an event, 20 bytes a unit, against 3.35 TB/s and 67 T
+    operations/s: printed, not asserted)."""
+    p, index, stream, wave = wave_panel
+    mapper = pipeline._make_mapper(p, index, index.device)
+    cfg, t = mapper.cfg, mapper.tables
+    u = jitmap.locate_units(cfg, torch.as_tensor(
+        stream.make_batch(0, p.frag_batch)[0], device=index.device), t)
+    assert int(u["n_live"]) >= wave
+    ev, s_u, _, n_ev = l2walk.build_events(
+        *jitmap.l2_chunk_args(cfg, t, u, slice(0, wave)))
+    scap = p.sketch_cap
+    parts = [(a, min(a + 512, wave)) for a in range(0, wave, 512)]
+
+    def narrow():
+        return [l2walk.walk({k: v[a:b] for k, v in ev.items()}, s_u[a:b],
+                            n_ev[a:b], scap) for a, b in parts]
+
+    got = l2walk.walk(ev, s_u, n_ev, scap)
+    _eq(got, [torch.cat(x) for x in zip(*narrow())])
+    _eq(got, l2walk.walk_plain(ev, s_u, n_ev, scap))
+    assert int((got[0] > 0).sum()) > wave // 2
+    t_wave = _graph_ms(lambda: l2walk.walk(ev, s_u, n_ev, scap))
+    t_narrow = _graph_ms(narrow)
+    events = int(n_ev.sum())
+    bound_ms = 1e3 * max((24 * events + 20 * wave) / 3.35e12,
+                         30 * events / 67e12)
+    print(f"\nK5 on {torch.cuda.get_device_name(0)}: U {wave} x T "
+          f"{ev['dn'].shape[1]}, scap {scap}, max n_ev {int(n_ev.max())}, "
+          f"{events} events, bound {bound_ms} ms: {t_wave} ms in one "
+          f"launch; {len(parts)} launches of <= 512 units: {t_narrow} ms "
+          f"({t_narrow / len(parts)} ms a launch)")

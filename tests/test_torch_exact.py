@@ -300,7 +300,8 @@ def test_compute_cgi_arrays_ignores_row_order(workdir):
     index = ReferenceIndex.build_device(params, device="cpu")
     stream = pipeline.FragmentStream(params.query_sequences, params)
     (m,) = pipeline.map_queries_batched(
-        stream, index, params, pipeline._make_mapper(params, index))
+        stream, index, params,
+        pipeline._make_mapper(params, index, index.device))
     cols = [m[k] for k in ("ref_seq_id", "query_seq_id", "ref_start_pos",
                            "ident")]
     fold = lambda c: ani.compute_cgi_arrays(

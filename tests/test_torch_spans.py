@@ -225,8 +225,8 @@ def test_fasta_parses_by_purpose(jobs, genomes):
     assert c["fasta.memo_hits"] == len(readers) * len(paths)
     assert sorted(c) == sorted(
         ["fasta.parses", "fasta.files", "fasta.parses[index.parse]",
-         "fasta.memo_hits", "l2.event_slots", "index.bytes",
-         "index.peak_bytes", "l1.key_bits"]
+         "fasta.memo_hits", "l2.event_slots", "l2.chunks",
+         "l2.chunk_units", "index.bytes", "index.peak_bytes", "l1.key_bits"]
         + [f"fasta.memo_hits[{p}]" for p in readers])
 
 

@@ -63,7 +63,7 @@ def _setup(workdir, **caps):
     G = len(r)
     jm = jjit.JitMapper(jp, jidx, unit_factor=max(G + 2, int(1.7 * G) + 8),
                         unit_chunk=min(512, B))
-    tm = pipeline._make_mapper(tp, tidx)
+    tm = pipeline._make_mapper(tp, tidx, tidx.device)
     assert tm.cfg.unit_cap == jm.cfg.unit_cap
     return (jp, jidx, jpipe.FragmentStream(q, jp), jm,
             tp, tidx, pipeline.FragmentStream(q, tp), tm)
