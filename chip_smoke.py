@@ -36,9 +36,6 @@ Phases, one JSON line each; any failure exits non-zero:
    mapped fragments; TSV and .matrix byte-equal to phase 3's (the device
    fold sums as the host fold does).  The .visual file is deleted
    afterwards.
-   cgi_matrices: ``device_cgi.cgi_matrices`` on the card over this run's
-   rows (every batch's valid rows, kept by ``exact_rows``) against its
-   host fold: counts equal, means within rtol 1e-6; its seconds.
    graphs: mid through the fast path and the exact path again with every
    mapper eager (``graphs=False``): TSV, .matrix and .visual byte-equal
    to phases 3 and 3c (which ran the map step as CUDA graphs), every
@@ -58,7 +55,8 @@ Phases, one JSON line each; any failure exits non-zero:
    ``l2_entry_cap`` 128 with the kernels' L2 span limit patched down to
    730 entries, so the fragments past it go to the scalar oracle
    (``utils/refmodel.py``): the three files byte-equal to the CPU run's.
-3e. mesh: the sharded runner on the card, one process running every cell.
+3e. mesh: the fast and exact jobs on a 2x2 grid on the card, one process
+   running every cell.
    Mid through ``--mesh 2x2`` (2 reference shards x 2 slices of each
    batch; every kernel's launches counted from 0 just before it): rows and
    counts equal to phase 3's, ANI within 1e-3; every kernel held bit-equal
@@ -87,11 +85,6 @@ Phases, one JSON line each; any failure exits non-zero:
    ``Mapper.probe_hits`` among them.  The mesh's fast TSV and .matrix are
    byte-equal to phase 3's.  Each run prints its wall, pairs/s and peak
    device memory.
-   sharded_step: ``mesh.make_sharded_step`` at 2x2 on the card, the golden
-   query multi.fa against strainA and strainB: counts equal to phase 2's
-   fast path, ANI within 1e-3; every kernel launched (counted from 0
-   before the shards' builds) and held bit-equal to its plain version at
-   this run's own call sites and shapes, as the mesh's.
    profile: ``--profile`` through the CLI, the goldens on both paths
    (files byte-equal to phase 2's), then mid's first 8 query genomes
    against all 32 on the fast path (4 of mid's 16 batches; TSV byte-equal
@@ -170,9 +163,8 @@ mappers eager: a graph replay calls no wrapper.  Then the kernels table
 path, ``launches``, through the exact path, ``launches_exact``, through
 ``--mesh 2x2``, ``launches_mesh``, with the largest error of its mesh
 sites, ``max_abs_err_mesh``, under ``--profile``, ``launches_profile``,
-and in the sharded step, ``launches_step``, with the largest error of
-its sites there, ``max_abs_err_step``; and through the scale phase's
-whole runs, ``launches_full`` and ``launches_scale1000``), the
+and through the scale phase's whole runs, ``launches_full`` and
+``launches_scale1000``), the
 nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits non-zero and prints no result.
@@ -232,7 +224,7 @@ SOURCE = {
     "events_scan": "fastani_tpu_torch/csrc/events.cu",
 }
 # kernels only the fast path's device CGI launches (the exact path folds
-# on the host, make_sharded_step through cgi_matrices)
+# on the host)
 FAST_ONLY = ("fold",)
 # E1 and E2 (csrc/events.cu): the L2 event build, once a chunk as K4
 EVENTS = ("events", "events_scan")
@@ -1263,40 +1255,9 @@ def tsv_rows(path) -> dict:
             for ln in pathlib.Path(path).read_text().split("\n") if ln}
 
 
-@contextlib.contextmanager
-def exact_rows():
-    """While the body runs, every batch's valid mapping rows (what
-    ``Mapper.collect`` reads of a batch, kept on the host: a copy to the
-    card here would wait for the batch dispatched after it) and the host
-    fold's arguments and result (``pipeline.fold_queries``) are kept in
-    the yielded dict (``rows``: list of (7, n) int32 arrays;
-    ``genome_of_seq``, ``params``, ``final``)."""
-    from fastani_tpu_torch.models import jitmap, pipeline
-
-    kept = {"rows": []}
-    collect, fold = jitmap.Mapper.collect, pipeline.fold_queries
-
-    def keep_rows(self, handle):
-        out = collect(self, handle)
-        kept["rows"].append(out["rows"])
-        return out
-
-    def keep_fold(maps, genome_of_seq, ref_offsets, stream, params, stats):
-        kept.update(genome_of_seq=genome_of_seq, params=params)
-        kept["final"] = fold(maps, genome_of_seq, ref_offsets, stream,
-                             params, stats)
-        return kept["final"]
-
-    jitmap.Mapper.collect, pipeline.fold_queries = keep_rows, keep_fold
-    try:
-        yield kept
-    finally:
-        jitmap.Mapper.collect, pipeline.fold_queries = collect, fold
-
-
 def run_exact_mid(torch, n_genomes: int):
     """Phase 3's genomes and list through the CLI's exact path; returns
-    the kernels' launches in this run and ``exact_rows``' capture."""
+    the kernels' launches in this run and its numbers."""
     from fastani_tpu_torch import cli
     from fastani_tpu_torch.utils import spans
     from fastani_tpu_torch.ops import cuda as kc
@@ -1308,10 +1269,9 @@ def run_exact_mid(torch, n_genomes: int):
     torch.cuda.reset_peak_memory_stats()
     kc.reset_launches()
     t0 = time.time()
-    with exact_rows() as kept:
-        rc = cli.main(["--ql", str(genomes), "--rl", str(genomes), "-o",
-                       str(out), "--exact", "--matrix", "--visualize",
-                       "--device", "cuda"], stats=stats)
+    rc = cli.main(["--ql", str(genomes), "--rl", str(genomes), "-o",
+                   str(out), "--exact", "--matrix", "--visualize",
+                   "--device", "cuda"], stats=stats)
     torch.cuda.synchronize()
     wall = time.time() - t0
     if rc != 0:
@@ -1358,9 +1318,6 @@ def run_exact_mid(torch, n_genomes: int):
     if stats["fallback_frags"]:
         raise AssertionError(f"exact: {stats['fallback_frags']} fragments "
                              f"fell back")
-    if len(kept["rows"]) != stats["batches"] or not stats["batches"]:
-        raise AssertionError(f"exact: rows kept of {len(kept['rows'])} "
-                             f"batches, the run mapped {stats['batches']}")
     if set(got) != set(want) or len(got) != n_pairs:
         raise AssertionError(f"exact: {len(got)} rows, fast path "
                              f"{len(want)}")
@@ -1376,7 +1333,7 @@ def run_exact_mid(torch, n_genomes: int):
     if n_visual != mapped:
         raise AssertionError(f"exact: {n_visual} .visual lines for "
                              f"{mapped} mapped fragments")
-    return launches, kept, {"wall_s": wall, **graph_numbers(stats),
+    return launches, {"wall_s": wall, **graph_numbers(stats),
                             "t_map_s": stats["t_map"],
                             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
                             "batches": stats["batches"],
@@ -1512,7 +1469,7 @@ def batch_host_calls(torch, paths) -> dict:
         t0 = time.time()
         with (eager_mappers() if mode == "eager" else
               contextlib.nullcontext()):
-            mapper = pipeline._make_mapper(p, index, index.device)
+            mapper = jitmap.job_mapper(p, index, len(paths), B)
         cgi = device_cgi.StreamingCGI(index, p, len(paths), len(paths),
                                       n_slots=4, frag_cap=B)
         counts = torch.zeros((3, len(jitmap.COUNT_NAMES)), dtype=torch.int64,
@@ -1710,7 +1667,7 @@ def run_sanity_and_oracle(torch, np, wd: pathlib.Path):
 
 
 # ---------------------------------------------------------------------------
-# phase 3e: the sharded runner, index persistence, the hits_cap auto-tune
+# phase 3e: the 2x2 grid, index persistence, the hits_cap auto-tune
 # ---------------------------------------------------------------------------
 
 def timed_cli(torch, args, stats=None) -> float:
@@ -2001,7 +1958,7 @@ def run_mesh(torch, np, n_genomes: int, golden: pathlib.Path):
 
 
 # ---------------------------------------------------------------------------
-# phases native_io, profile, cgi_matrices and sharded_step
+# phases native_io and profile
 # ---------------------------------------------------------------------------
 
 def run_native_io(paths) -> None:
@@ -2160,103 +2117,6 @@ def run_profile(torch, n_genomes: int, golden: pathlib.Path) -> dict:
                              f"{stats['profile_launches']}; files equal to "
                              f"phase 3's: {same}")
     return launches
-
-
-def run_cgi_matrices(torch, kept: dict) -> None:
-    """``device_cgi.cgi_matrices`` on the card over phase 3c's rows (every
-    batch's valid rows: mid has no fallback fragment) against that phase's
-    host fold (``ani.compute_cgi_arrays``): counts equal, means within rtol
-    1e-6 (and the count of means that differ in any bit)."""
-    import numpy as np
-
-    from fastani_tpu_torch.models import device_cgi
-
-    rows = torch.as_tensor(np.concatenate(kept["rows"], axis=1),
-                           device="cuda").long()
-    params, final = kept["params"], kept["final"]
-    gos = torch.as_tensor(kept["genome_of_seq"], device="cuda")
-    G = len(params.ref_sequences)
-    lut = torch.as_tensor(device_cgi.identity_lut_full(
-        params.kmer_size, max(params.sketch_cap, int(rows[5].max()))),
-        device="cuda")
-    args = (rows[1], rows[2], rows[3], rows[4], rows[5], rows[6],
-            torch.ones(rows.shape[1], dtype=torch.bool, device="cuda"), gos,
-            lut, params.frag_len, len(params.query_sequences), G)
-    times = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        counts, sums = device_cgi.cgi_matrices(*args)
-        torch.cuda.synchronize()
-        times.append(time.time() - t0)
-    counts, sums = counts.cpu().numpy(), sums.cpu().numpy()
-    want_c = np.zeros_like(counts)
-    want_i = np.zeros(counts.shape, np.float32)
-    for e in final:
-        want_c[e.qry_genome, e.ref_genome] = e.count_seq
-        want_i[e.qry_genome, e.ref_genome] = e.identity
-    occ = want_c > 0
-    mean = (sums[occ] / np.maximum(counts[occ], 1)).astype(np.float32)
-    rel = float(np.max(np.abs(mean - want_i[occ]) / want_i[occ]))
-    emit({"phase": "cgi_matrices", "rows": rows.shape[1], "pairs": len(final),
-          "seconds": times, "counts_equal": bool((counts == want_c).all()),
-          "max_rel_diff_mean": rel,
-          "means_not_bit_equal": int((mean.view(np.int32)
-                                      != want_i[occ].view(np.int32)).sum())})
-    if not (counts == want_c).all() or rel > 1e-6:
-        raise AssertionError(f"cgi_matrices: counts or sums differ from the "
-                             f"host fold (max rel diff {rel})")
-
-
-def run_sharded_step(torch, golden: pathlib.Path) -> dict:
-    """``mesh.make_sharded_step`` on the card at 2x2: the golden query
-    multi.fa against strainA (shard 0) and strainB (shard 1), counts equal
-    to phase 2's fast path, ANI within 1e-3 of it, and every kernel held
-    bit-equal to its plain version at this run's call sites.  Returns the
-    kernels' launches in this run (the shards' builds and the step) and
-    ``check_sites``' result."""
-    from fastani_tpu_torch.config import Parameters
-    from fastani_tpu_torch.models import pipeline
-    from fastani_tpu_torch.ops import cuda as kc
-    from fastani_tpu_torch.parallel import distributed, mesh as pmesh
-
-    refs = ["strainA.fa", "strainB.fa"]
-    p = Parameters(ref_sequences=[str(golden / r) for r in refs]).finalize()
-    frags = pipeline.load_query_fragments(str(golden / "multi.fa"), p).frags
-    torch.cuda.synchronize()
-    kc.reset_launches()
-    t0 = time.time()
-    with kernel_sites(torch, kc.KERNELS, shapes_per_site=3) as seen:
-        shards = pmesh.build_shards(p, distributed.plan(2, 2),
-                                    torch.device("cuda"), {}, lambda m: None)
-        step = pmesh.make_sharded_step(p, shards, 2, 2, -(-len(frags) // 2))
-        sums, counts = (t.cpu().numpy() for t in step(frags))
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = dict(kc.LAUNCHES)
-    # every kernel at the step's own call sites and shapes (25-row q
-    # slices, one-genome shards, their index builds)
-    sites = check_sites(torch, "sharded step", seen, launches)
-    del seen
-    want = tsv_rows(golden / "g2.txt")
-    got = {("multi.fa", ref): [str(sums[r, 0] / counts[r, 0]),
-                               str(counts[r, 0])]
-           for r, ref in enumerate(refs) if counts[r, 0]}
-    dev = max(abs(float(got[k][0]) - float(v[0])) for k, v in want.items())
-    emit({"phase": "sharded_step", "mesh": "2x2", "fragments": len(frags),
-          "wall_s": wall, "counts": counts[:, 0].tolist(),
-          "max_ani_diff_vs_fast": dev, "launches": launches})
-    if set(got) != set(want) or any(got[k][1] != v[1]
-                                    for k, v in want.items()):
-        raise AssertionError(f"sharded step: {got} against {want}")
-    if dev > 1e-3:
-        raise AssertionError(f"sharded step: ANI off by {dev}")
-    missing = [k for k, v in launches.items()
-               if v <= 0 and k not in FAST_ONLY]
-    if missing:
-        raise AssertionError(f"sharded step: kernels not launched: {missing}")
-    events_at_k4("sharded step", launches)
-    return launches, sites
 
 
 # ---------------------------------------------------------------------------
@@ -2552,15 +2412,15 @@ def run_int64_route(torch, np) -> dict:
     (``wpos_bits`` None, L1's sort by ``torch.sort``) on every seqId, the
     same rows, equal counts, ANI within 1e-3."""
     from fastani_tpu_torch import cli
-    from fastani_tpu_torch.models import pipeline
+    from fastani_tpu_torch.models import jitmap
     from fastani_tpu_torch.ops import cuda as kc
 
     wd = WORK / "draft"
     wd.mkdir(parents=True, exist_ok=True)
     refs, query = build_draft_panel(np, wd, small=DRAFT_CONTIG_BP)
     (wd / "refs.txt").write_text("\n".join(refs) + "\n")
-    mappers, make = [], pipeline._make_mapper
-    pipeline._make_mapper = lambda *a: mappers.append(make(*a)) or mappers[-1]
+    mappers, make = [], jitmap.job_mapper
+    jitmap.job_mapper = lambda *a: mappers.append(make(*a)) or mappers[-1]
     runs = {}
     try:
         for device in ("cuda", "cpu"):
@@ -2579,7 +2439,7 @@ def run_int64_route(torch, np) -> dict:
                             "fallback_frags": stats["fallback_frags"],
                             "max_hits": stats["max_hits"]}
     finally:
-        pipeline._make_mapper = make
+        jitmap.job_mapper = make
     cfg, t = mappers[0].cfg, mappers[0].tables
     dev = same_rows(tsv_rows(wd / "cuda.txt"), tsv_rows(wd / "cpu.txt"),
                     "int64 route")
@@ -2717,9 +2577,7 @@ def main() -> int:
         torch, np, N_GENOMES, GENOME_BP)
     run_native_io(paths)
     run_redo(torch, golden_dir)
-    launches_exact, kept, exact_row = run_exact_mid(torch, N_GENOMES)
-    run_cgi_matrices(torch, kept)
-    del kept
+    launches_exact, exact_row = run_exact_mid(torch, N_GENOMES)
     run_graphs(torch, N_GENOMES, {
         "fast": {k: fast_row[k] for k in ("wall_s", "peak_mem_bytes",
                                           "batches", *graph_numbers(
@@ -2728,7 +2586,6 @@ def main() -> int:
         "exact": exact_row | {"launches": launches_exact}})
     run_sanity_and_oracle(torch, np, golden_dir)
     launches_mesh, mesh_sites = run_mesh(torch, np, N_GENOMES, golden_dir)
-    launches_step, step_sites = run_sharded_step(torch, golden_dir)
     launches_profile = run_profile(torch, N_GENOMES, golden_dir)
     # phase 4 counts the batches' launches, as the eager capture makes them
     kernels = check_kernels(torch, np, paths, batches,
@@ -2743,13 +2600,10 @@ def main() -> int:
                       "launches_exact": launches_exact[name],
                       "launches_mesh": launches_mesh[name],
                       "launches_profile": launches_profile[name],
-                      "launches_step": launches_step[name],
                       "launches_full": launches_scale["full"][name],
                       "launches_scale1000": launches_scale["scale1000"][name],
                       "max_abs_err": r["max_abs_err"],
                       "max_abs_err_mesh": mesh_sites[name]["max_abs_err"],
-                      "max_abs_err_step": step_sites.get(
-                          name, {}).get("max_abs_err"),
                       "ms": r["kernel_ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],

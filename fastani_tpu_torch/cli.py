@@ -13,10 +13,10 @@ It runs on ``--device`` (default ``cuda``) the fast path
 (``models.pipeline.run_fast``), or, with ``--exact``, ``--visualize`` or
 ``-s``, the exact path (``models.pipeline.run``: the host fold, whose TSV
 and ``.matrix`` are byte-equal to the reference's, the ``.visual`` file
-and the repeat sanity check).  With ``--mesh`` or ``--coordinator`` the
-same paths run sharded (``parallel.runner``): ``run_sharded_fused`` and
-``run_sharded``; every process of a run over several runs this CLI with
-its ``--procid``.
+and the repeat sanity check).  Without ``--mesh`` or ``--coordinator`` a
+job is the 1x1 grid; with them the same two jobs run sharded over the
+grid, and every process of a run over several runs this CLI with its
+``--procid``.
 """
 
 from __future__ import annotations
@@ -165,22 +165,18 @@ def main(argv=None, stats: Optional[dict] = None) -> int:
     # the .visual rows and the sanity ratios come from the exact path only
     # (reference: one binary covers all modes, parseCmdArgs.hpp:114-234)
     exact = args.exact or args.visualize or args.sanityCheck
-    if args.mesh or args.coordinator:
-        from fastani_tpu_torch.parallel import runner
-
-        n_r = n_q = None
-        if args.mesh and args.mesh != "auto":
-            n_r, n_q = (int(x) for x in args.mesh.lower().split("x"))
-        run = runner.run_sharded if exact else runner.run_sharded_fused
-        run(params, n_r, n_q, coordinator=args.coordinator or None,
-            num_processes=args.nprocs or None,
-            process_id=args.procid if args.procid >= 0 else None,
-            device=args.device, stats=stats)
-        return 0
+    n_r = n_q = 1
+    if args.mesh and args.mesh != "auto":
+        n_r, n_q = (int(x) for x in args.mesh.lower().split("x"))
+    elif args.mesh or args.coordinator:
+        n_r = n_q = None                    # --mesh auto
     from fastani_tpu_torch.models import pipeline
 
     run = pipeline.run if exact else pipeline.run_fast
-    run(params, device=args.device, stats=stats)
+    run(params, device=args.device, stats=stats, n_r=n_r, n_q=n_q,
+        coordinator=args.coordinator or None,
+        num_processes=args.nprocs or None,
+        process_id=args.procid if args.procid >= 0 else None)
     return 0
 
 

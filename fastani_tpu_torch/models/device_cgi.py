@@ -19,9 +19,6 @@ sums are the same bits on the card and on
 the CPU, in every run, on a shard as in the single run, and equal to the
 exact path's host fold; the JAX package's segment sums may differ from
 them in the last bits (counts are exact).
-
-``cgi_matrices`` is the one-shot form over accumulated rows (the 1-way and
-2-way dedupes by sorts), used by ``parallel.mesh.make_sharded_step``.
 """
 
 from __future__ import annotations
@@ -288,88 +285,6 @@ def finalize_rows_plain(tab, acc_counts, acc_sums, fin_qnos: torch.Tensor,
     # pageable copy, which waits for the device
     tab.index_fill_(0, slots, -1)
     return tab, acc_counts, acc_sums
-
-
-def _lexsort(keys) -> torch.Tensor:
-    """``np.lexsort``: the order sorting by the last key, ties by the one
-    before it, and so on; stable sorts from the least significant key up."""
-    order = torch.arange(keys[0].shape[0], device=keys[0].device)
-    for k in keys:
-        order = order[torch.sort(k[order], stable=True).indices]
-    return order
-
-
-def _last_of_groups(*cols) -> torch.Tensor:
-    """Whether each position of the sorted columns ends its run of equal
-    tuples."""
-    last = torch.zeros(cols[0].shape[0], dtype=torch.bool,
-                       device=cols[0].device)
-    last[-1:] = True
-    for c in cols:
-        last[:-1] |= c[:-1] != c[1:]
-    return last
-
-
-def cgi_matrices(qno, qsid, sid, shared, sketch, pos, valid, genome_of_seq,
-                 ident_lut, frag_len: int, n_query_genomes: int,
-                 n_ref_genomes: int):
-    """Device CGI over accumulated mapping rows of all query genomes (the
-    JAX package's ``cgi_matrices``).  Row tensors are (N,) ints, invalid
-    rows arbitrary and masked by ``valid`` (N,) bool.  Returns (counts
-    (Gq, Gr) int32, sums (Gq, Gr) float32) after the 1-way and 2-way
-    dedupes of computeCoreIdentity.hpp:212-255 with the tie-breakers of
-    ``ani.compute_cgi_arrays``: 1-way, the last of an ascending sort by
-    (qno, genome, qsid, identity, sid, pos); 2-way per (qno, sid, bin),
-    kept rows first, the last by (identity, qsid).  Each pair's identities
-    are summed by ``fold_sequential`` in (sid, bin) order, the host fold's
-    order."""
-    Gq, Gr = n_query_genomes, n_ref_genomes
-    dev = sid.device
-    counts = torch.zeros(Gq * Gr, dtype=torch.int32, device=dev)
-    sums = torch.zeros(Gq * Gr, dtype=torch.float32, device=dev)
-    qno, qsid, sid, shared, sketch, pos = (
-        x.long() for x in (qno, qsid, sid, shared, sketch, pos))
-    valid = valid.bool()
-    if sid.shape[0]:
-        ident = ident_lut[sketch.clamp(0, ident_lut.shape[0] - 1),
-                          shared.clamp(0, ident_lut.shape[1] - 1)]
-        gid = genome_of_seq[sid.clamp(0, genome_of_seq.shape[0] - 1)].long()
-        gid = torch.where(valid, gid, Gr)               # invalid: pad group
-        qno_m = torch.where(valid, qno, Gq)
-        pos_bin = pos // (frag_len - 20)        # computeCoreIdentity.hpp:194
-        # non-negative float32 bit patterns order like the floats
-        ibits = torch.where(valid, ident, 0.0).view(torch.int32).long()
-
-        o1 = _lexsort((pos, sid, ibits, qsid, gid, qno_m))
-        keep1 = torch.zeros_like(valid)
-        keep1[o1] = _last_of_groups(qno_m[o1], gid[o1], qsid[o1])
-        keep1 &= valid
-
-        drop = (~keep1).long()
-        o2 = _lexsort((qsid, torch.where(keep1, ibits, -1), pos_bin, sid,
-                       qno_m, drop))
-        keep2 = torch.zeros_like(valid)
-        keep2[o2] = _last_of_groups(drop[o2], qno_m[o2], sid[o2],
-                                    pos_bin[o2]) & (drop[o2] == 0)
-        keep2 &= keep1
-
-        # kept rows in (qno, sid, bin) order, then grouped by pair
-        sel = o2[keep2[o2]]
-        if sel.shape[0]:
-            by_pair = torch.sort(qno[sel] * Gr + gid[sel], stable=True)
-            sel = sel[by_pair.indices]
-            seg, n_rows = torch.unique_consecutive(by_pair.values,
-                                                   return_counts=True)
-            grp = torch.repeat_interleave(
-                torch.arange(seg.shape[0], device=dev), n_rows)
-            rank = (torch.arange(sel.shape[0], device=dev)
-                    - (torch.cumsum(n_rows, 0) - n_rows)[grp])
-            buf = torch.zeros((seg.shape[0], int(n_rows.max())),
-                              dtype=torch.float32, device=dev)
-            buf[grp, rank] = ident[sel]
-            counts[seg] = n_rows.to(torch.int32)
-            sums[seg] = fold_sequential(buf)
-    return counts.view(Gq, Gr), sums.view(Gq, Gr)
 
 
 class StreamingCGI:

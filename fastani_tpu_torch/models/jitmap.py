@@ -89,7 +89,8 @@ class MapperConfig:
 
     @classmethod
     def from_params(cls, params, freq_threshold: int, unit_factor: int = 4,
-                    unit_chunk: int = 16, index=None) -> "MapperConfig":
+                    unit_chunk: int = 16, index=None,
+                    height: Optional[int] = None) -> "MapperConfig":
         if params.sketch_cap > l2walk.MAX_SCAP:
             raise ValueError(f"sketch_cap={params.sketch_cap} exceeds the L2 "
                              f"event record limit of {l2walk.MAX_SCAP}")
@@ -109,17 +110,18 @@ class MapperConfig:
             frag_len=params.frag_len, sketch_cap=params.sketch_cap,
             hits_cap=params.hits_cap, cand_cap=params.cand_cap,
             l2_entry_cap=params.l2_entry_cap,
-            unit_cap=unit_cap_for(params, unit_factor),
+            unit_cap=unit_cap_for(params, unit_factor, height),
             unit_chunk=unit_chunk, freq_threshold=freq_threshold,
             wpos_bits=wpos_bits)
 
 
-def unit_cap_for(params, unit_factor: int) -> int:
-    """The L2 work units a batch of ``params.frag_batch`` fragments holds
-    at ``unit_factor`` units a fragment, never more than the candidate
-    grid (F x cand_cap) itself."""
-    return min(params.frag_batch * unit_factor,
-               params.frag_batch * params.cand_cap)
+def unit_cap_for(params, unit_factor: int,
+                 height: Optional[int] = None) -> int:
+    """The L2 work units a batch of ``height`` fragments (default
+    ``params.frag_batch``) holds at ``unit_factor`` units a fragment,
+    never more than the candidate grid (F x cand_cap) itself."""
+    F = params.frag_batch if height is None else height
+    return F * min(unit_factor, params.cand_cap)
 
 
 def chunk_width(dev: torch.device, unit_cap: int, sketch_cap: int,
@@ -135,6 +137,21 @@ def chunk_width(dev: torch.device, unit_cap: int, sketch_cap: int,
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     blocks = sms * l2walk.walk_blocks_per_sm(sketch_cap)
     return min(blocks * l2walk.WALK_BLOCK_UNITS, unit_cap)
+
+
+def job_mapper(params, index, n_genomes: int, height: int) -> "Mapper":
+    """The map step of a job's shard (the whole index on one device) of
+    ``n_genomes`` reference genomes for batches of ``height`` rows, at the
+    caps ``config.scale_caps`` set: L2 units for ~1.7 candidate regions
+    per fragment and genome (``unit_factor`` int(1.7 G) + 8, the JAX
+    package's), ``unit_cap_for`` the height, in chunks of one full wave of
+    K5 blocks on a card (``chunk_width``), of up to 512 units on the
+    CPU."""
+    uf = int(1.7 * n_genomes) + 8
+    chunk = chunk_width(index.device, unit_cap_for(params, uf, height),
+                        params.sketch_cap, min(512, height))
+    return Mapper(params, index, unit_factor=uf, unit_chunk=chunk,
+                  height=height)
 
 
 @dataclasses.dataclass
@@ -484,8 +501,7 @@ class Mapper:
     warms each stage up once eagerly, captures the three stages
     (``StepGraphs``) and replays them, and every later batch replays them,
     a run's padded tail included; a capture that fails raises.
-    ``graphs=False`` runs every batch eagerly.  ``map_batch`` maps one
-    batch at its own height, eagerly, for the heights no stream makes."""
+    ``graphs=False`` runs every batch eagerly."""
 
     def __init__(self, params, index, unit_factor: int = 4,
                  unit_chunk: int = 128, graphs: Optional[bool] = None,
@@ -499,7 +515,7 @@ class Mapper:
         self._side = None               # the captures' stream
         self.cfg = MapperConfig.from_params(params, index.freq_threshold,
                                             unit_factor, unit_chunk,
-                                            index=index)
+                                            index=index, height=self.height)
         spans.gauge("l1.key_bits", 64 if self.cfg.wpos_bits is None else 32)
         dev = index.device
         M = index.n_entries
@@ -563,14 +579,6 @@ class Mapper:
             other.tables = dataclasses.replace(
                 self.tables, **self._luts(other.cfg.sketch_cap))
         return other
-
-    def map_batch(self, frags: torch.Tensor, qno_row=None, qsid_row=None,
-                  row_valid=None) -> dict:
-        """``map_step_packed`` of one batch at its own height, eagerly:
-        for the heights no stream makes (the parity helper
-        ``mesh._slice_rows``).  A run's batches go through ``dispatch``."""
-        return map_step_packed(self.cfg, frags, self.tables, qno_row,
-                               qsid_row, row_valid)
 
     def dispatch(self, frags: np.ndarray, qno_row: np.ndarray,
                  qsid_row: np.ndarray, n_used: int,

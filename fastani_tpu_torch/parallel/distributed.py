@@ -79,14 +79,16 @@ def _card(dev: torch.device, rank: int) -> torch.device:
 @contextlib.contextmanager
 def session(coordinator: Optional[str], num_processes: Optional[int],
             process_id: Optional[int], device):
-    """``initialize``, then yield the device this process drives; the
-    process group is destroyed on exit if this call created it."""
+    """``initialize``, then yield the device this process drives (without
+    a process group, ``device`` itself); the process group is destroyed on
+    exit if this call created it."""
     created = not dist.is_initialized()
     rank = initialize(coordinator, num_processes, process_id, device)
     created = created and dist.is_initialized()
     dev = resolve_device(device)
     try:
-        yield _card(dev, rank) if dev.type == "cuda" else dev
+        yield (_card(dev, rank) if dev.type == "cuda" and dist.is_initialized()
+               else dev)
     finally:
         if created:
             dist.destroy_process_group()

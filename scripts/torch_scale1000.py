@@ -76,11 +76,12 @@ def run(paths: list, clusters: int, frag_batch: int = 512, queries: int = 0,
     static_cap = params.hits_cap
     mapper = phase("autotune", lambda: pipeline.autotune_hits_cap(
         mapper, stream, params))
+    grid = pipeline.Grid.single(index, mapper)
     handle = phase("stream", lambda: pipeline.map_queries_cgi_stream(
-        stream, index, params, mapper, n_q, genomes))
+        stream, grid, params, n_q))
     stats = {}
     counts, sums = phase("readout", lambda: pipeline.map_queries_cgi_finish(
-        handle, index, params, mapper, stats=stats))
+        handle, grid, params, stats=stats))
     total = sum(sec.values())
     mapped = counts > 0
     same = (np.arange(n_q)[:, None] // per) == (np.arange(genomes) // per)

@@ -1,6 +1,6 @@
-"""The port's device CGI fold (update_tab, finalize_rows) and its one-shot
-``cgi_matrices`` against the JAX package's on the same rows: counts equal,
-sums within rtol 1e-6 (the JAX segment sums add in another order); the
+"""The port's device CGI fold (update_tab, finalize_rows) against the JAX
+package's on the same rows: counts equal, sums within rtol 1e-6 (the JAX
+segment sums add in another order); the
 port's sums bit-equal to the reference's sequential float32 fold; its host
 fold (``compute_cgi_arrays``) and ``identities_for`` bit-equal to the JAX
 package's."""
@@ -184,64 +184,3 @@ def test_finalize_rows_fixed_order_sum():
     np.testing.assert_array_equal(c3[:, 0], c[:, g])
     np.testing.assert_array_equal(s3[:, 0].view(np.int32),
                                   sm[:, g].view(np.int32))
-
-
-def _random_rows(rng, n, n_qg, n_seqs):
-    """tests/test_device_cgi.py's random rows."""
-    qno = rng.integers(0, n_qg, n).astype(np.int32)
-    qsid = rng.integers(0, 40, n).astype(np.int32)
-    sid = rng.integers(0, n_seqs, n).astype(np.int32)
-    sketch = rng.integers(100, 300, n).astype(np.int32)
-    shared = (sketch * rng.uniform(0.3, 1.0, n)).astype(np.int32)
-    pos = rng.integers(0, 200_000, n).astype(np.int32)
-    return qno, qsid, sid, shared, sketch, pos
-
-
-def test_cgi_matrices_match_jax():
-    """tests/test_device_cgi.py's rows (seed 7): counts equal to the JAX
-    cgi_matrices', sums within rtol 1e-6 of them; each pair's sum
-    bit-equal to the host fold's (``compute_cgi_arrays``: mean times
-    count is the fold's sum only up to rounding, so the mean is held)."""
-    rng = np.random.default_rng(7)
-    n_qg, n_rg, n_seqs, frag_len = 3, 4, 9, 3000
-    genome_of_seq = np.sort(rng.integers(0, n_rg, n_seqs)).astype(np.int32)
-    lut = device_cgi.identity_lut_full(16, 384)
-    rows = _random_rows(rng, 500, n_qg, n_seqs)
-    valid = rng.uniform(size=500) < 0.8
-    jc, js = jcgi.cgi_matrices(*(jnp.asarray(x) for x in rows),
-                               jnp.asarray(valid), jnp.asarray(genome_of_seq),
-                               jnp.asarray(lut), frag_len, n_qg, n_rg)
-    c, sm = device_cgi.cgi_matrices(
-        *(torch.from_numpy(x) for x in rows), torch.from_numpy(valid),
-        torch.from_numpy(genome_of_seq), torch.from_numpy(lut), frag_len,
-        n_qg, n_rg)
-    assert c.dtype == torch.int32 and sm.dtype == torch.float32
-    np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
-    np.testing.assert_allclose(sm.numpy(), np.asarray(js), rtol=1e-6)
-    assert c.sum() > 100
-
-    qno, qsid, sid, shared, sketch, pos = rows
-    ident = lut[sketch, shared]
-    for q in range(n_qg):
-        sel = (qno == q) & valid
-        res, _ = ani.compute_cgi_arrays(
-            sid[sel].astype(np.int64), qsid[sel].astype(np.int64),
-            pos[sel].astype(np.int64), ident[sel], genome_of_seq, frag_len,
-            q, 100, want_visual=False)
-        for r in res:
-            assert c[q, r.ref_genome] == r.count_seq
-            mean = np.float32(sm[q, r.ref_genome].numpy()
-                              / np.float32(r.count_seq))
-            assert mean.view(np.int32) == np.float32(r.identity).view(np.int32)
-
-
-def test_cgi_matrices_all_invalid():
-    lut = torch.from_numpy(device_cgi.identity_lut_full(16, 384))
-    z = torch.zeros(16, dtype=torch.int32)
-    for n in (16, 0):
-        c, sm = device_cgi.cgi_matrices(
-            z[:n], z[:n], z[:n], z[:n], z[:n], z[:n],
-            torch.zeros(n, dtype=torch.bool), torch.zeros(4, dtype=torch.int32),
-            lut, 3000, 2, 2)
-        assert c.shape == (2, 2) and int(c.sum()) == 0
-        assert float(sm.sum()) == 0.0

@@ -50,8 +50,10 @@ def test_chunk_width_is_one_wave_on_a_card(monkeypatch, sms, blocks,
 
 
 def test_make_mapper_takes_the_width_of_its_device(world, monkeypatch):
-    """``pipeline._make_mapper`` hands the mapper ``chunk_width`` of the
-    device it is given, at the mapper's own unit_cap and sketch width."""
+    """``jitmap.job_mapper`` hands the mapper ``chunk_width`` of its
+    index's device, at the mapper's own unit_cap and sketch width, its
+    units int(1.7 G) + 8 a fragment of its height; a shard's slice height
+    sets its unit_cap and CPU chunk."""
     _, _, tp, tidx, _ = world
     calls = []
     width = jitmap.chunk_width
@@ -61,13 +63,19 @@ def test_make_mapper_takes_the_width_of_its_device(world, monkeypatch):
         return width(dev, unit_cap, sketch_cap, narrow)
 
     monkeypatch.setattr(jitmap, "chunk_width", spy)
-    mapper = pipeline._make_mapper(tp, tidx, torch.device("cpu"))
     G = len(tp.ref_sequences)
+    mapper = jitmap.job_mapper(tp, tidx, G, tp.frag_batch)
     assert calls == [("cpu", mapper.cfg.unit_cap, tp.sketch_cap,
                       min(512, tp.frag_batch))]
     assert mapper.cfg.unit_cap == jitmap.unit_cap_for(
-        tp, max(G + 2, int(1.7 * G) + 8))
+        tp, int(1.7 * G) + 8) == tp.frag_batch * min(int(1.7 * G) + 8,
+                                                      tp.cand_cap)
     assert mapper.cfg.unit_chunk == min(512, tp.frag_batch)
+    assert mapper.height == tp.frag_batch
+    slice_ = jitmap.job_mapper(tp, tidx, 1, 3)
+    assert slice_.height == 3 and slice_.cfg.unit_chunk == 3
+    assert slice_.cfg.unit_cap == 3 * min(9, tp.cand_cap) == \
+        jitmap.unit_cap_for(tp, 9, 3)
 
 
 @pytest.fixture(scope="module")

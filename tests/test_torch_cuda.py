@@ -192,7 +192,9 @@ def test_sort_kernel_on_real_l1_rows_past_16384(cuda_device, tmp_path,
         rows.append(x.clone()) if x.shape[1] == width else None) or orig(x))
     frags = np.concatenate([pipeline.load_query_fragments(q, p).frags
                             for q in paths])[:256]
-    mapper.map_batch(torch.as_tensor(frags, device=cuda_device))
+    jitmap.map_step_packed(mapper.cfg, torch.as_tensor(frags,
+                                                       device=cuda_device),
+                           mapper.tables)
     (x,) = rows
     assert x.shape == (256, width) and x.dtype == torch.int32
     # 64 % real keys on this panel (the CPU's map step, the same rows)
@@ -528,8 +530,6 @@ def test_mesh_card_matches_cpu(cuda_device, tmp_path, monkeypatch, exact):
     and on the CPU: the same rows and counts, ANI within 1e-3, on the fast
     path; the three files byte-equal, and equal to the frozen goldens, on
     the exact path."""
-    from fastani_tpu_torch.parallel import runner
-
     q, r = _golden_fixtures(tmp_path, monkeypatch)
     q = q[:1]
 
@@ -538,8 +538,8 @@ def test_mesh_card_matches_cpu(cuda_device, tmp_path, monkeypatch, exact):
         p = Parameters(query_sequences=q, ref_sequences=r, frag_batch=16,
                        out_file_name=out, matrix_output=True,
                        visualize=exact)
-        fn = runner.run_sharded if exact else runner.run_sharded_fused
-        rows = fn(p, 2, 2, device=device, log=lambda m: None)
+        fn = pipeline.run if exact else pipeline.run_fast
+        rows = fn(p, device=device, log=lambda m: None, n_r=2, n_q=2)
         return rows, [open(out + suf).read() for suf in
                       (("", ".matrix", ".visual") if exact else ("",))]
 
@@ -611,57 +611,6 @@ def test_finalize_rows_reproducible_on_card(cuda_device):
     want = fold(torch.device("cpu"))
     for c, bits in runs:
         assert torch.equal(c, want[0]) and torch.equal(bits, want[1])
-
-
-def test_cgi_matrices_card_matches_cpu(cuda_device):
-    """cgi_matrices on 200000 random rows (8 query genomes, 12 reference
-    genomes of 3 contigs): counts and sum bits equal on the card and the
-    CPU, and over three card calls."""
-    from fastani_tpu_torch.models import device_cgi
-
-    rng = np.random.default_rng(31)
-    n, Gq, Gr = 200_000, 8, 12
-    sketch = rng.integers(100, 320, n)
-    cols = [rng.integers(0, Gq, n), rng.integers(0, 400, n),
-            rng.integers(0, 3 * Gr, n),
-            (sketch * rng.uniform(0.3, 1.0, n)).astype(np.int64), sketch,
-            rng.integers(0, 3_000_000, n)]
-    valid = rng.uniform(size=n) < 0.9
-    gos = np.repeat(np.arange(Gr), 3)
-    lut = device_cgi.identity_lut_full(16, 320)
-
-    def run(dev):
-        t = lambda a: torch.as_tensor(a, device=dev)
-        c, sm = device_cgi.cgi_matrices(*map(t, cols), t(valid), t(gos),
-                                        t(lut), 3000, Gq, Gr)
-        return c.cpu(), sm.cpu().view(torch.int32)
-
-    want = run(torch.device("cpu"))
-    assert int(want[0].sum()) > 10_000
-    for _ in range(3):
-        c, bits = run(cuda_device)
-        assert torch.equal(c, want[0]) and torch.equal(bits, want[1])
-
-
-def test_sharded_step_card_matches_cpu(cuda_device, tmp_path, monkeypatch):
-    """make_sharded_step at 2x2 on the golden query multi.fa against
-    strainA and strainB: counts and sum bits equal on the card and the
-    CPU."""
-    from fastani_tpu_torch.parallel import distributed, mesh as pmesh
-
-    q, r = _golden_fixtures(tmp_path, monkeypatch)
-
-    def run(dev):
-        p = Parameters(ref_sequences=r).finalize()
-        frags = pipeline.load_query_fragments(q[0], p).frags
-        shards = pmesh.build_shards(p, distributed.plan(2, 2), dev, {},
-                                    lambda m: None)
-        step = pmesh.make_sharded_step(p, shards, 2, 2, -(-len(frags) // 2))
-        return [t.cpu() for t in step(frags)]
-
-    got, want = run(cuda_device), run(torch.device("cpu"))
-    assert torch.equal(got[1], want[1]) and int(want[1].min()) > 0
-    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
 
 
 def test_graphs_match_eager_on_goldens(cuda_device, tmp_path, monkeypatch):
@@ -955,7 +904,7 @@ def wave_panel(tmp_path_factory):
 
 
 def test_graphs_at_the_wave_match_512_unit_chunks(wave_panel):
-    """``_make_mapper`` on the card takes one full wave of K5 blocks a
+    """``jitmap.job_mapper`` on the card takes one full wave of K5 blocks a
     chunk; its graphed map step, batch by batch, bit-equal to the same
     step at 512-unit chunks in every output; K5 launches
     ceil(n_live / width) times a batch (the first batch once more: its
@@ -963,7 +912,7 @@ def test_graphs_at_the_wave_match_512_unit_chunks(wave_panel):
     from fastani_tpu_torch.ops import cuda
 
     p, index, stream, wave = wave_panel
-    wide = pipeline._make_mapper(p, index, index.device)
+    wide = jitmap.job_mapper(p, index, len(p.ref_sequences), p.frag_batch)
     sms = torch.cuda.get_device_properties(index.device).multi_processor_count
     assert wave % (32 * sms) == 0 and wave >= 32 * sms
     assert wide.cfg.unit_chunk == min(wave, wide.cfg.unit_cap) == wave
@@ -1017,7 +966,7 @@ def test_walk_kernel_at_the_wave_and_at_512(wave_panel):
     operations an event, 20 bytes a unit, against 3.35 TB/s and 67 T
     operations/s: printed, not asserted)."""
     p, index, stream, wave = wave_panel
-    mapper = pipeline._make_mapper(p, index, index.device)
+    mapper = jitmap.job_mapper(p, index, len(p.ref_sequences), p.frag_batch)
     cfg, t = mapper.cfg, mapper.tables
     u = jitmap.locate_units(cfg, torch.as_tensor(
         stream.make_batch(0, p.frag_batch)[0], device=index.device), t)

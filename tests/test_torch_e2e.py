@@ -150,8 +150,8 @@ def test_map_queries_redo_matches_uncapped(workdir, caps):
         stream = pipeline.FragmentStream(params.query_sequences, params)
         stats = {}
         out = pipeline.map_queries_cgi_device(
-            stream, index, params, jitmap.Mapper(params, index), 2, 2,
-            stats=stats)
+            stream, pipeline.Grid.single(index, jitmap.Mapper(params, index)),
+            params, 2, stats=stats)
         return out, stats
 
     (c0, s0), st0 = run()

@@ -15,7 +15,7 @@ import torch
 from fastani_tpu_torch import cli
 from fastani_tpu_torch.config import Parameters, scale_caps
 from fastani_tpu_torch.index.sketch import ReferenceIndex
-from fastani_tpu_torch.models import ani, glue, pipeline
+from fastani_tpu_torch.models import ani, glue, jitmap, pipeline
 from fastani_tpu_torch.utils import refmodel
 from tests import synth
 
@@ -300,8 +300,9 @@ def test_compute_cgi_arrays_ignores_row_order(workdir):
     index = ReferenceIndex.build_device(params, device="cpu")
     stream = pipeline.FragmentStream(params.query_sequences, params)
     (m,) = pipeline.map_queries_batched(
-        stream, index, params,
-        pipeline._make_mapper(params, index, index.device))
+        stream, pipeline.Grid.single(index, jitmap.job_mapper(
+            params, index, len(params.ref_sequences), params.frag_batch)),
+        params)
     cols = [m[k] for k in ("ref_seq_id", "query_seq_id", "ref_start_pos",
                            "ident")]
     fold = lambda c: ani.compute_cgi_arrays(

@@ -101,7 +101,8 @@ def test_staged_step_matches_jax_and_sliced_loop(world, padded):
         assert torch.equal(bufs[name][:U], ref), name
         assert not bufs[name][-(-n_live // UNIT_CHUNK) * UNIT_CHUNK:].any()
     # the eager map step is the same three stages
-    out = mapper.map_batch(f, bufs["qno_row"], bufs["qsid_row"], rv)
+    out = jitmap.map_step_packed(mapper.cfg, f, mapper.tables,
+                                 bufs["qno_row"], bufs["qsid_row"], rv)
     for name in jitmap.OUTPUTS:
         assert torch.equal(out[name], bufs[name]), name
 
@@ -127,8 +128,9 @@ def test_mapper_copies_keep_their_own_graphs(world):
         "graphs": 0, "t_capture": 0, "t_warmup": 0.0, "graph_pool_bytes": 0,
         "eager_batches": 0, "replays": 0, "warmup_launches": {}}
     f = torch.from_numpy(frags)
-    a = mapper.with_caps(hits_cap=8192).map_batch(f)
-    b = mapper.map_batch(f)
+    wide = mapper.with_caps(hits_cap=8192)
+    a = jitmap.map_step_packed(wide.cfg, f, wide.tables)
+    b = jitmap.map_step_packed(mapper.cfg, f, mapper.tables)
     for name in jitmap.OUTPUTS:
         assert torch.equal(a[name], b[name]), name
 

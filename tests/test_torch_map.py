@@ -159,7 +159,8 @@ def test_map_step_packed_matches_jax(world):
     rv = torch.arange(B) < F
     padi = lambda a: torch.from_numpy(np.concatenate(
         [a, np.zeros(B - F, np.int32)]))
-    got = mapper.map_batch(torch.from_numpy(pad), padi(qno), padi(qsid), rv)
+    got = jitmap.map_step_packed(mapper.cfg, torch.from_numpy(pad),
+                                 mapper.tables, padi(qno), padi(qsid), rv)
     counts = got["counts"].numpy()
     np.testing.assert_array_equal(counts, want["counts"].astype(np.int64))
     assert len(jitmap.COUNT_NAMES) == len(counts) == 11

@@ -1,13 +1,13 @@
-"""The port's sharded runner (``parallel/runner.py``; ``--mesh``,
-``--coordinator``) on the CPU against the JAX package's and against the
-port's single-device paths: the fast path's counts and ANI, the exact
-path's bytes, the per-shard sanity check, per-shard index files both
-ways, and a run over two gloo processes, which reads only its own shards'
-reference files.  Small batches (``frag_batch`` 8) split each query
-genome's fragments over the q cells, so the q-merge of the device CGI
-decides the fast path's counts.  The per-query sharded step
-(``mesh.make_sharded_step``) against the JAX package's on its 8-device CPU
-mesh (tests/conftest.py)."""
+"""The port's jobs on (r, q) grids (``models/pipeline.py``; ``--mesh``,
+``--coordinator``) on the CPU against the JAX package's sharded runner and
+against the port's 1x1 jobs: the fast path's counts and ANI, with and
+without fragments over a cap (redone per shard), a query that maps
+nowhere, the exact path's bytes, the per-shard sanity check, per-shard
+index files both ways, and a run over two gloo processes, which reads
+only its own shards' reference files.  Small batches (``frag_batch`` 8)
+split each query genome's fragments over the q cells, so the q-merge of
+the device CGI decides the fast path's counts.  The JAX runner runs on its
+8-device CPU mesh (tests/conftest.py)."""
 
 import contextlib
 import io
@@ -22,9 +22,7 @@ import torch
 
 from fastani_tpu_torch import cli
 from fastani_tpu_torch.config import Parameters
-from fastani_tpu_torch.io import fasta
-from fastani_tpu_torch.models import glue, pipeline
-from fastani_tpu_torch.parallel import distributed, mesh as pmesh, runner
+from fastani_tpu_torch.models import pipeline
 from tests import synth
 
 # one intra-op thread: the suite runs several xdist workers per core, and
@@ -67,30 +65,67 @@ def _matrices(rows, n_q, n_r):
     return c, a
 
 
-@pytest.mark.parametrize("n_r,n_q", [(1, 1), (2, 2), (2, 4)])
-def test_fused_mesh_matches_jax_and_single_device(world, n_r, n_q):
-    """Counts equal to the JAX run_sharded_fused's and to the port's
-    run_fast, ANI within 1e-3 of both."""
+@pytest.mark.parametrize("n_r,n_q,caps", [
+    (1, 1, {}), (2, 2, {}), (2, 4, {}), (2, 2, {"l2_entry_cap": 128}),
+    (2, 4, {"l2_entry_cap": 128})],
+    ids=["1-1", "2-2", "2-4", "2-2-l2cap128", "2-4-l2cap128"])
+def test_fused_mesh_matches_jax_and_single_device(world, n_r, n_q, caps):
+    """Counts equal to the JAX run_sharded_fused's and to the port's 1x1
+    run_fast at the same caps, ANI within 1e-3 of both.  At l2_entry_cap
+    128 every mapped fragment overflows (the default cap, 256, holds all
+    but one), and each query genome is redone exactly on every shard."""
     from fastani_tpu.config import Parameters as JParams
     from fastani_tpu.parallel import runner as jrunner
 
     _, refs, queries = world
     stats = {}
-    got = _matrices(runner.run_sharded_fused(
-        _params(refs, queries), n_r, n_q, device="cpu", stats=stats,
-        log=lambda m: None), 2, 4)
-    single = _matrices(pipeline.run_fast(_params(refs, queries),
+    got = _matrices(pipeline.run_fast(
+        _params(refs, queries, **caps), device="cpu", stats=stats,
+        log=lambda m: None, n_r=n_r, n_q=n_q), 2, 4)
+    single = _matrices(pipeline.run_fast(_params(refs, queries, **caps),
                                          device="cpu", log=lambda m: None),
                        2, 4)
     jax = _matrices(jrunner.run_sharded_fused(
         JParams(frag_len=1000, frag_batch=8, ref_sequences=list(refs),
-                query_sequences=list(queries)), n_r, n_q,
+                query_sequences=list(queries), **caps), n_r, n_q,
         log=lambda m: None), 2, 4)
     for want in (single, jax):
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_allclose(got[1], want[1], atol=1e-3)
-    assert (got[0] > 0).sum() == 8
-    assert stats["fallback_frags"] == 0 and stats["batches"] == 6
+    assert (got[0] > 0).sum() == 8 and stats["batches"] == 6
+    if caps:
+        assert stats["fallback_frags"] > 0 and stats["redone_queries"] == 2
+    else:
+        assert stats["fallback_frags"] == 0 == stats["redone_queries"]
+
+
+@pytest.mark.parametrize("n_r,n_q", [(1, 1), (1, 2), (2, 2)])
+def test_unrelated_query_maps_nowhere(world, tmp_path, n_r, n_q):
+    """A query genome that shares no fragment with the references, through
+    the fast job: every count 0, no TSV row, as the JAX run_fast."""
+    from fastani_tpu.config import Parameters as JParams
+    from fastani_tpu.models import pipeline as jpipe
+
+    _, refs, _ = world
+    query = str(tmp_path / "unrelated.fa")
+    synth.write_fasta(query, [("u0", synth.random_genome(
+        np.random.default_rng(77), 24_000))])
+    out = str(tmp_path / "o.txt")
+    stats = {}
+    got = pipeline.run_fast(
+        _params(refs, [query], out_file_name=out), device="cpu",
+        stats=stats, log=lambda m: None, n_r=n_r, n_q=n_q)
+    want = jpipe.run_fast(JParams(frag_len=1000, frag_batch=8,
+                                  ref_sequences=list(refs),
+                                  query_sequences=[query]),
+                          log=lambda m: None)
+    c, a = _matrices(got, 1, 4)
+    assert not c.any() and not a.any()
+    np.testing.assert_array_equal(c, _matrices(want, 1, 4)[0])
+    assert [(e.count_seq, e.total_query_fragments) for e in got] == \
+        [(e.count_seq, e.total_query_fragments) for e in want]
+    assert open(out).read() == ""
+    assert stats["batches"] == 3 and stats["n_valid"] == 0
 
 
 def _read(out, suffixes=("", ".matrix", ".visual")):
@@ -118,23 +153,28 @@ def test_exact_mesh_cli_byte_equal(world, tmp_path):
     assert _read(outs["jax"]) == want
 
 
-@pytest.mark.parametrize("n_r,n_q", [(2, 4), (3, 3)])
-def test_exact_mesh_split_batches_byte_equal(world, tmp_path, n_r, n_q):
-    """run_sharded at frag_batch 8, each batch split over the q cells and
-    the genomes over 2 or 3 shards (one of them with two files): the three
-    files equal pipeline.run's."""
+@pytest.mark.parametrize("n_r,n_q,caps", [
+    (2, 4, {}), (3, 3, {}), (2, 4, {"l2_entry_cap": 128})],
+    ids=["2-4", "3-3", "2-4-l2cap128"])
+def test_exact_mesh_split_batches_byte_equal(world, tmp_path, n_r, n_q,
+                                             caps):
+    """pipeline.run at frag_batch 8 on a grid, each batch split over the q
+    cells and the genomes over 2 or 3 shards (one of them with two files):
+    the three files equal the 1x1 job's; at l2_entry_cap 128 every mapped
+    fragment overflows and is mapped again at grown caps, per shard."""
     _, refs, queries = world
-    files = {}
-    for tag in ("single", "mesh"):
+    files, stats = {}, {}
+    for tag, grid in (("single", (1, 1)), ("mesh", (n_r, n_q))):
         p = _params(refs, queries, visualize=True, matrix_output=True,
-                    sanity_check=True, out_file_name=str(tmp_path / tag))
-        if tag == "single":
-            pipeline.run(p, device="cpu", log=lambda m: None)
-        else:
-            runner.run_sharded(p, n_r, n_q, device="cpu", log=lambda m: None)
+                    sanity_check=True, out_file_name=str(tmp_path / tag),
+                    **caps)
+        stats[tag] = {}
+        pipeline.run(p, device="cpu", log=lambda m: None, stats=stats[tag],
+                     n_r=grid[0], n_q=grid[1])
         files[tag] = _read(p.out_file_name)
     assert files["mesh"] == files["single"]
     assert files["single"][0].count("\n") == 8
+    assert (stats["mesh"]["fallback_frags"] > 0) == bool(caps)
 
 
 def test_mesh_sanity_rejects_repeats(world, tmp_path):
@@ -190,13 +230,13 @@ import torch
 torch.set_num_threads(1)
 sys.path.insert(0, {repo!r})
 from fastani_tpu_torch.config import Parameters
-from fastani_tpu_torch.parallel import runner
+from fastani_tpu_torch.models import pipeline
 p = Parameters(frag_len=1000, frag_batch=8, ref_sequences={refs!r},
                query_sequences={queries!r}, out_file_name={out!r},
                matrix_output=True, visualize={exact!r}, sanity_check={exact!r},
                save_index={prefix!r})
-run = runner.run_sharded if {exact!r} else runner.run_sharded_fused
-run(p, 3, 3, coordinator={coord!r}, num_processes=2,
+run = pipeline.run if {exact!r} else pipeline.run_fast
+run(p, n_r=3, n_q=3, coordinator={coord!r}, num_processes=2,
     process_id=int(sys.argv[1]), device="cpu")
 """
 
@@ -245,8 +285,8 @@ def test_two_gloo_processes_match_one(world, tmp_path, tmp_path_factory,
     p1 = _params([], queries, out_file_name=str(tmp_path / "one.txt"),
                  matrix_output=True, visualize=exact, sanity_check=exact,
                  load_index=prefix)
-    run = runner.run_sharded if exact else runner.run_sharded_fused
-    run(p1, 3, 3, device="cpu", log=lambda m: None)
+    run = pipeline.run if exact else pipeline.run_fast
+    run(p1, n_r=3, n_q=3, device="cpu", log=lambda m: None)
     suffixes = ("", ".matrix", ".visual") if exact else ("", ".matrix")
     assert _read(out2, suffixes) == _read(p1.out_file_name, suffixes)
     assert _read(out2, ("",))[0].count("\n") == 8
@@ -255,74 +295,3 @@ def test_two_gloo_processes_match_one(world, tmp_path, tmp_path_factory,
     assert set(refs) | set(queries) <= reads[0]
     assert refs[2] in reads[1] and set(queries) <= reads[1]
     assert refs[0] not in reads[1] and refs[3] not in reads[1]
-
-
-def _jax_sharded_step(refs, frags, n_r, n_q):
-    """tests/test_mesh.py's JAX ``make_sharded_step`` on one query
-    genome's fragments: (sum_ident, count) (n_r, G)."""
-    import jax.numpy as jnp
-
-    from fastani_tpu.models import jitmap as jjitmap
-    from fastani_tpu.ops import stats as jstats
-    from fastani_tpu.parallel import mesh as jmesh
-    from tests.test_mapping_parity import make_params
-
-    params = make_params(frag_len=1000)
-    params.frag_batch, params.sketch_cap, params.hits_cap = 8, 256, 1024
-    params.cand_cap, params.l2_entry_cap = 8, 256
-    sidx = jmesh.build_sharded_index(params, refs, n_r)
-    F, L = frags.shape
-    F_local = -(-F // n_q)
-    padded = np.zeros((n_q * F_local, L), np.uint8)
-    padded[:F] = frags
-    cfg = jjitmap.MapperConfig.from_params(params, sidx.freq_threshold,
-                                           unit_factor=8, unit_chunk=8)
-    cfg = cfg.__class__(**{**cfg.__dict__, "unit_cap": F_local * 8,
-                           "unit_chunk": 8})
-    s_max, k = params.sketch_cap, params.kmer_size
-    step = jmesh.make_sharded_step(
-        cfg, jmesh.make_mesh(n_r, n_q), s_max, k, params.percentage_identity,
-        params.frag_len, sidx.max_local_genomes)
-    sums, counts = step(
-        jnp.asarray(padded.reshape(n_q, F_local, L)),
-        *(jnp.asarray(getattr(sidx, a)) for a in (
-            "occ_hash", "occ_sid", "occ_wpos", "mi_hash", "mi_sid",
-            "mi_wpos", "seq_start", "genome_of_seq", "n_occ")),
-        jnp.asarray(jstats.min_hits_lut(k, params.percentage_identity,
-                                        s_max)),
-        jnp.asarray(jjitmap.gate_lut_np(k, params.percentage_identity,
-                                        s_max)),
-        jnp.asarray(jmesh.point_identity_lut(s_max, k)))
-    return np.asarray(sums), np.asarray(counts)
-
-
-@pytest.mark.parametrize("n_r,n_q,caps", [
-    (2, 2, {}), (2, 4, {}), (2, 4, {"l2_entry_cap": 128})],
-    ids=["2x2", "2x4", "2x4-l2cap128"])
-def test_sharded_step_matches_jax(world, monkeypatch, n_r, n_q, caps):
-    """The port's make_sharded_step on the query genome (24 fragments of
-    1000 bp, w 24 as in tests/test_mesh.py) against the JAX step: counts
-    equal, ANI within 1e-3.  A fragment over a cap is mapped again by the
-    fallback: at l2_entry_cap 128 every mapped fragment (the default cap,
-    256, holds all but one)."""
-    wd, refs, _ = world
-    (_, seq), = fasta.read_sequences(str(wd / "query.fa"))
-    F = len(seq) // 1000
-    frags = seq[:F * 1000].reshape(F, 1000)
-    js, jc = _jax_sharded_step(refs, frags, n_r, n_q)
-
-    params = Parameters(frag_len=1000, window_size=24,
-                        ref_sequences=list(refs), **caps)
-    shards = pmesh.build_shards(params, distributed.plan(n_r, n_q),
-                                torch.device("cpu"), {}, lambda m: None)
-    step = pmesh.make_sharded_step(params, shards, n_r, n_q, -(-F // n_q))
-    fallbacks = []
-    map_fallback = glue.map_fallback_batch
-    monkeypatch.setattr(glue, "map_fallback_batch", lambda *a, **kw: (
-        fallbacks.append(1), map_fallback(*a, **kw))[1])
-    sums, counts = (t.numpy() for t in step(frags))
-    assert fallbacks or not caps
-    assert counts.shape == jc.shape == (n_r, 2)
-    np.testing.assert_array_equal(counts, jc)
-    assert (counts > 0).all()
-    np.testing.assert_allclose(sums / counts, js / jc, atol=1e-3)

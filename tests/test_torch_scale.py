@@ -10,6 +10,7 @@ and ``tests/test_torch_cuda.py``."""
 
 import pathlib
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -75,7 +76,8 @@ def test_caps_and_units_match_jax(G, monkeypatch):
                         JParams(ref_sequences=refs), monkeypatch, jjit,
                         "JitMapper")
     monkeypatch.setattr(pipeline, "reference_index",
-                        lambda params, *a, **kw: object())
+                        lambda params, dev, *a, **kw: types.SimpleNamespace(
+                            device=dev))
     got = _mapper_args(
         lambda p: pipeline.run_fast(p, device="cpu", log=lambda m: None),
         Parameters(ref_sequences=refs), monkeypatch, jitmap, "Mapper")
@@ -180,8 +182,10 @@ def test_wide_caps_map_step_matches_jax(clustered, monkeypatch):
     monkeypatch.setattr(compact, "compact_rows", compact_rec)
     mapper = jitmap.Mapper(tp, tidx, unit_factor=1708, unit_chunk=512)
     assert mapper.cfg.unit_cap == F * 256
-    got = mapper.map_batch(torch.from_numpy(frags), torch.from_numpy(qno),
-                           torch.from_numpy(qsid), torch.ones(F, dtype=bool))
+    got = jitmap.map_step_packed(
+        mapper.cfg, torch.from_numpy(frags), mapper.tables,
+        torch.from_numpy(qno), torch.from_numpy(qsid),
+        torch.ones(F, dtype=bool))
     assert 24576 in widths["sort"]
     assert {(24576, 256), (F * 256, F * 256)} <= widths["compact"]
     counts = got["counts"].numpy()
@@ -204,8 +208,8 @@ def test_int64_hit_keys_match_jax_run_fast(tmp_path, monkeypatch):
                                   ref_sequences=refs, frag_batch=64),
                           log=lambda m: None)
     mappers = []
-    make = pipeline._make_mapper
-    monkeypatch.setattr(pipeline, "_make_mapper", lambda *a: mappers.append(
+    make = jitmap.job_mapper
+    monkeypatch.setattr(jitmap, "job_mapper", lambda *a: mappers.append(
         make(*a)) or mappers[-1])
     stats = {}
     got = pipeline.run_fast(Parameters(query_sequences=[query],

@@ -47,7 +47,7 @@ READS = {"tolist", "item", "__int__", "__bool__", "__float__", "__index__",
 def _setup(workdir, **caps):
     """Both packages' parameters (caps as both runs scale them, then
     ``caps``), indexes, streams and mappers, the JAX mapper in the JAX
-    ``run_fast``'s geometry and the port's by ``pipeline._make_mapper``."""
+    ``run_fast``'s geometry and the port's by ``jitmap.job_mapper``."""
     q = [str(workdir / f) for f in QUERIES]
     r = [str(workdir / f) for f in REFS]
     jp = JParams(query_sequences=q, ref_sequences=r, frag_batch=B).finalize()
@@ -63,7 +63,7 @@ def _setup(workdir, **caps):
     G = len(r)
     jm = jjit.JitMapper(jp, jidx, unit_factor=max(G + 2, int(1.7 * G) + 8),
                         unit_chunk=min(512, B))
-    tm = pipeline._make_mapper(tp, tidx, tidx.device)
+    tm = jitmap.job_mapper(tp, tidx, G, tp.frag_batch)
     assert tm.cfg.unit_cap == jm.cfg.unit_cap
     return (jp, jidx, jpipe.FragmentStream(q, jp), jm,
             tp, tidx, pipeline.FragmentStream(q, tp), tm)
@@ -117,9 +117,11 @@ def _port_readout(monkeypatch, tp, tidx, ts, tm, n_q, n_r, redone):
 
     monkeypatch.setattr(pipeline, "_redo_query_exact", recorded)
     stats = {}
-    h = pipeline.map_queries_cgi_stream(ts, tidx, tp, tm, n_q, n_r)
+    grid = pipeline.Grid.single(tidx, tm)
+    assert grid.n_local == {0: n_r}
+    h = pipeline.map_queries_cgi_stream(ts, grid, tp, n_q)
     assert h.counts.shape == (3, 11) and h.fb_masks.shape == (3, B)
-    counts, sums = pipeline.map_queries_cgi_finish(h, tidx, tp, tm, stats)
+    counts, sums = pipeline.map_queries_cgi_finish(h, grid, tp, stats)
     return counts, sums, stats
 
 
@@ -169,7 +171,8 @@ def test_map_queries_batched_matches_jax(workdir):
     jp, jidx, js, jm, tp, tidx, ts, tm = _setup(workdir)
     want = jpipe.map_queries_batched(js, jidx, jp, jm)
     stats = {}
-    got = pipeline.map_queries_batched(ts, tidx, tp, tm, stats)
+    got = pipeline.map_queries_batched(ts, pipeline.Grid.single(tidx, tm),
+                                       tp, stats)
     assert stats["batches"] == 3 and stats["fallback_frags"] == 0
     assert len(got) == len(want) == 2
     keys = ("query_seq_id", "ref_seq_id", "ref_start_pos", "ident")
@@ -216,13 +219,14 @@ def test_stream_reads_only_n_live(workdir, monkeypatch):
                 mode.paused -= 1
 
         monkeypatch.setattr(mod, name, paused)
+    grid = pipeline.Grid.single(tidx, tm)
     with mode:
-        h = pipeline.map_queries_cgi_stream(ts, tidx, tp, tm, 2, 3)
+        h = pipeline.map_queries_cgi_stream(ts, grid, tp, 2)
     assert mode.counts == {"__int__": len(h.starts)} and len(h.starts) == 3
     mode.counts.clear()
     stats = {}
     with mode:
-        pipeline.map_queries_cgi_finish(h, tidx, tp, tm, stats)
+        pipeline.map_queries_cgi_finish(h, grid, tp, stats)
     assert mode.counts == {"cpu": 3, "numpy": 3}
     assert stats["batches"] == 3 and stats["fallback_frags"] == 0
     assert tm.graph_stats()["eager_batches"] == 3
