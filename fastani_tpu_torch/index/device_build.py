@@ -22,21 +22,33 @@ winSketch.hpp:124-193).  The build's device memory stays near the bytes of
 the arrays it returns (40 a slot): the flushes' entries (12 bytes each),
 then the padded arrays, then the sort's key, order and buffers.
 
-Spans (``utils/spans.py``): ``index.parse`` a reference file (the FASTA
-read and uppercase, ``io.fasta.contigs``, which a job's memo keeps for
-its later readers, so a rebuild parses only the files whose bytes it did
-not keep, and ``segment_rows``), ``index.flush`` a winnow launch
-(the upload, K1 and K2 enqueued) with ``index.overflow_read`` (the wait on
-its overflow flag) and ``index.place`` (its entries compacted) under it,
+Step 1 runs ahead of the flushes: each file's read, parse, uppercase
+and ``segment_rows`` on worker threads (``_ParseAhead``), its results
+taken in file order on the build's thread, which alone numbers the
+seqIds, counts the parse and keeps it in the job's memo.
+
+Spans (``utils/spans.py``): ``index.parse`` a reference file on the
+build's thread (the wait for its parse, and the bookkeeping: the memo,
+which keeps it for its later readers, so a rebuild parses only the files
+whose bytes it did not keep, and the counters; the workers record no
+span), ``index.flush`` a winnow launch with ``index.concat`` (the
+pending rows joined on the host), ``index.upload`` (their copy to the
+device), ``index.overflow_read`` (the wait on K1 and K2 and the overflow
+flag) and ``index.place`` (its entries compacted) under it,
 ``index.assemble`` (steps 4 and 5, waited for on the card) with
 ``index.sort`` (step 5) under it, and ``index.rebuild`` around a
-rebuild.  Counter ``index.bytes``: the bytes of the returned index's
-device arrays.
+rebuild.  Counters ``index.bytes``: the bytes of the returned index's
+device arrays; ``index.parse_threads``, ``index.parse_ready`` and
+``index.parse_work_ns``: the parse's workers, the files ready when
+reached and the workers' seconds (``_ParseAhead``).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import os
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -71,6 +83,75 @@ def segment_rows(seq: np.ndarray, k: int, w: int, seg: int = _SEG):
     padded[halo: halo + L] = seq
     rows = np.lib.stride_tricks.sliding_window_view(padded, W)[::seg][:n]
     return np.ascontiguousarray(rows), np.arange(n, dtype=np.int32) * seg
+
+
+def _cut(seqs, k: int, w: int):
+    """Each contig's ``segment_rows``, None for one too short to winnow."""
+    return [None if len(s) < w or len(s) < k else segment_rows(s, k, w)
+            for s in seqs]
+
+
+def _parse_file(path: str, k: int, w: int):
+    """A worker's whole share of a file: its records uppercased
+    (``fasta.read_contigs``, uncounted), each contig's rows, and the
+    nanoseconds it took."""
+    t0 = time.perf_counter_ns()
+    c = fasta.read_contigs(path)
+    return c, _cut(c.seqs, k, w), time.perf_counter_ns() - t0
+
+
+class _ParseAhead:
+    """The reference files' parses (``_parse_file``) on a pool of worker
+    threads, at most two a worker ahead of the build's loop, which takes
+    them in file order (``take``) and keeps the bookkeeping on its own
+    thread: the memo and the parse counters (``fasta.keep``) and the spans.
+    A file whose bytes the job's memo holds is not sent.  The workers are
+    the usable cores less the build's own thread, at least one, at most the
+    files.  Gauge ``index.parse_threads``: the pool's size; counters
+    ``index.parse_ready``: the files whose parse was done when the loop
+    reached them, ``index.parse_work_ns``: the workers' parse time."""
+
+    def __init__(self, files: Sequence[str], k: int, w: int):
+        self.files, self.k, self.w = files, k, w
+        n = max(1, min(len(os.sched_getaffinity(0)) - 1, len(files)))
+        self.pool = ThreadPoolExecutor(n, thread_name_prefix="index.parse")
+        spans.gauge("index.parse_threads", n)
+        self.depth = 2 * n
+        self.futs: Dict[int, Future] = {}
+        self.next = 0
+
+    def __enter__(self):
+        self._fill()
+        return self
+
+    def __exit__(self, *exc):
+        self.pool.shutdown(wait=True, cancel_futures=True)
+        return False
+
+    def _fill(self) -> None:
+        while len(self.futs) < self.depth and self.next < len(self.files):
+            p = self.files[self.next]
+            if not fasta.held(p):
+                self.futs[self.next] = self.pool.submit(
+                    _parse_file, p, self.k, self.w)
+            self.next += 1
+
+    def take(self, i: int):
+        """File ``i``'s records (the memo's, or the worker's parse, counted
+        and kept: ``fasta.keep``) and each contig's rows (None for a contig
+        too short to winnow).  A worker's error is raised here."""
+        path = self.files[i]
+        fut = self.futs.pop(i, None)
+        self._fill()
+        if fasta.held(path):                 # the memo's bytes
+            if fut is not None:
+                fut.cancel()
+            recs = fasta.contigs(path)
+            return recs, _cut(recs.seqs, self.k, self.w)
+        spans.count("index.parse_ready", int(fut.done()))
+        recs, cuts, ns = fut.result()
+        spans.count("index.parse_work_ns", ns)
+        return fasta.keep(path, recs), cuts
 
 
 def build_device(cls, params: Parameters,
@@ -108,12 +189,14 @@ def _build(cls, params, ref_files, device, cap: int):
         if not pend_rows:
             return
         with spans.span("index.flush"):
-            rows = torch.as_tensor(np.concatenate(pend_rows), device=device)
-            sid = np.concatenate(pend_sid)
-            as_t = lambda a: torch.as_tensor(np.concatenate(a), device=device)
-            base = as_t(pend_base)
-            emit, h = winnow.winnow_rows(rows, as_t(pend_sid), base,
-                                         as_t(pend_len), k, w)
+            with spans.span("index.concat"):
+                host = [np.concatenate(a) for a in
+                        (pend_rows, pend_sid, pend_base, pend_len)]
+            with spans.span("index.upload"):
+                rows, sid_t, base, plen = (
+                    torch.as_tensor(a, device=device) for a in host)
+            sid = host[1]
+            emit, h = winnow.winnow_rows(rows, sid_t, base, plen, k, w)
             wp = winnow.positions(base, _SEG, w)
             per = _SEG // _ROW
             e2 = emit.reshape(-1, _ROW)
@@ -139,28 +222,29 @@ def _build(cls, params, ref_files, device, cap: int):
 
     seq_counter = 0
     n_pend = 0
-    for i, path in enumerate(files):
-        # the file's contigs parsed and cut first, then queued for the
-        # flushes, so a flush never falls inside a file's parse
-        with spans.span("index.parse", file=i):
-            parsed = []
-            recs = fasta.contigs(path)
-            for name, seq in zip(recs.names, recs.seqs):
-                L = len(seq)
-                metadata.append(ContigInfo(name, L))
-                if not (L < w or L < k):
-                    parsed.append((segment_rows(seq, k, w), seq_counter, L))
-                seq_counter += 1
-        for (rows, base), sid, L in parsed:
-            if n_pend and n_pend + len(rows) > _FLUSH_ROWS:
-                flush()
-                n_pend = 0
-            pend_rows.append(rows)
-            pend_sid.append(np.full(len(rows), sid, np.int32))
-            pend_base.append(base)
-            pend_len.append(np.full(len(rows), L, np.int32))
-            n_pend += len(rows)
-        seq_by_file.append(seq_counter)
+    with _ParseAhead(files, k, w) as ahead:
+        for i in range(len(files)):
+            # the file's contigs parsed and cut first (on a worker, ahead
+            # of this loop), then queued for the flushes, so a flush never
+            # falls inside a file's parse
+            with spans.span("index.parse", file=i):
+                recs, cuts = ahead.take(i)
+                parsed = []
+                for name, seq, cut in zip(recs.names, recs.seqs, cuts):
+                    metadata.append(ContigInfo(name, len(seq)))
+                    if cut is not None:
+                        parsed.append((cut, seq_counter, len(seq)))
+                    seq_counter += 1
+            for (rows, base), sid, L in parsed:
+                if n_pend and n_pend + len(rows) > _FLUSH_ROWS:
+                    flush()
+                    n_pend = 0
+                pend_rows.append(rows)
+                pend_sid.append(np.full(len(rows), sid, np.int32))
+                pend_base.append(base)
+                pend_len.append(np.full(len(rows), L, np.int32))
+                n_pend += len(rows)
+            seq_by_file.append(seq_counter)
     flush()
     with spans.span("index.assemble"):
         return _assemble(cls, device, w, metadata, seq_by_file, parts,

@@ -14,10 +14,13 @@ names a file to which each parsed path is appended (the JAX package's
 hook: tests check which genome files a process reads).  Each parse also
 counts into the open job (``utils/spans.py``): ``fasta.parses``, also
 under the innermost open span (the parse's purpose), and
-``fasta.files``, the distinct paths parsed.
+``fasta.files``, the distinct paths parsed.  ``read_contigs`` is the
+parse alone, uncounted, for a worker thread (the index build's); the
+job's thread counts its result, and keeps it, with ``keep``.
 
 A job parses each genome file once: it opens ``memo(query paths)``, and
-inside it ``contigs`` (names and uppercased contig bytes) and
+inside it ``contigs`` (names and uppercased contig bytes; ``held`` says
+whether it would answer from the memo) and
 ``contig_lengths`` keep what a path's first parse gave, wherever it
 happens, and give it out to every later reader of the path.  Every path
 keeps its names and lengths; only a query path keeps its bytes, until
@@ -53,22 +56,33 @@ def _open_bytes(path: str) -> bytes:
         return f.read()
 
 
-def read_sequences(path: str) -> Iterator[Tuple[str, np.ndarray]]:
-    """Yield (name, sequence bytes as a uint8 array) per record, in order:
-    the native parser's records, or with ``FASTANI_TPU_NO_NATIVE`` set the
-    Python parser's."""
+def _count_parse(path: str) -> None:
+    """Record one parse of ``path`` in the open job (and the
+    ``FASTANI_TRACE_READS`` line): on the thread that holds the job."""
     trace = os.environ.get("FASTANI_TRACE_READS")
     if trace:
         with open(trace, "a") as f:
             f.write(path + "\n")
     spans.count("fasta.parses", by_span=True)
     spans.distinct("fasta.files", path)
+
+
+def _records(path: str) -> Iterator[Tuple[str, np.ndarray]]:
+    """``read_sequences`` uncounted."""
     if os.environ.get("FASTANI_TPU_NO_NATIVE"):
         yield from read_sequences_py(path)
         return
     names, seq, offsets = native.parse(_open_bytes(path))
     for i, name in enumerate(names):
         yield name, seq[offsets[i]:offsets[i + 1]]
+
+
+def read_sequences(path: str) -> Iterator[Tuple[str, np.ndarray]]:
+    """Yield (name, sequence bytes as a uint8 array) per record, in order:
+    the native parser's records, or with ``FASTANI_TPU_NO_NATIVE`` set the
+    Python parser's."""
+    _count_parse(path)
+    yield from _records(path)
 
 
 def read_sequences_py(path: str) -> Iterator[Tuple[str, np.ndarray]]:
@@ -171,9 +185,13 @@ def memo(queries: Iterable[str]):
         _MEMO.reset(token)
 
 
-def _parse(path: str, upper: bool) -> Contigs:
+def read_contigs(path: str, upper: bool = True) -> Contigs:
+    """The file's records parsed (with their uppercased bytes if
+    ``upper``), counted nowhere and kept nowhere: a function of the path
+    alone, which any thread may run (the memo and the job's recording
+    belong to the job's thread)."""
     names, lengths, seqs = [], [], []
-    for name, seq in read_sequences(path):
+    for name, seq in _records(path):
         names.append(name)
         lengths.append(len(seq))
         if upper:
@@ -182,18 +200,31 @@ def _parse(path: str, upper: bool) -> Contigs:
                    seqs if upper else None)
 
 
-def contigs(path: str) -> Contigs:
-    """The file's records with their uppercased bytes: the memo's, or
-    parsed (and kept, in a memo)."""
+def held(path: str) -> bool:
+    """Whether the job's memo holds the bytes of ``path`` (``contigs``
+    would answer from it)."""
     m = _MEMO.get()
     got = m.files.get(path) if m is not None else None
-    if got is not None and got.seqs is not None:
-        spans.count("fasta.memo_hits", by_span=True)
-        return got
-    c = _parse(path, upper=True)
+    return got is not None and got.seqs is not None
+
+
+def keep(path: str, c: Contigs) -> Contigs:
+    """Count ``c``, a parse of ``path`` (``read_contigs``'s, on any
+    thread), as a parse in the open job, and keep it in the memo."""
+    _count_parse(path)
+    m = _MEMO.get()
     if m is not None:
         m.keep(path, c)
     return c
+
+
+def contigs(path: str) -> Contigs:
+    """The file's records with their uppercased bytes: the memo's, or
+    parsed (counted, and kept in a memo: ``keep``)."""
+    if held(path):
+        spans.count("fasta.memo_hits", by_span=True)
+        return _MEMO.get().files[path]
+    return keep(path, read_contigs(path))
 
 
 def contig_lengths(path: str) -> np.ndarray:
@@ -203,10 +234,8 @@ def contig_lengths(path: str) -> np.ndarray:
     if m is not None and path in m.files:
         spans.count("fasta.memo_hits", by_span=True)
         return m.files[path].lengths
-    c = _parse(path, upper=m is not None and path in m.queries)
-    if m is not None:
-        m.keep(path, c)
-    return c.lengths
+    return keep(path, read_contigs(
+        path, upper=m is not None and path in m.queries)).lengths
 
 
 def release(path: str) -> None:

@@ -649,7 +649,9 @@ class Mapper:
         loaded and its attributes set outside a capture; their launches
         count, and are kept in ``warmup_launches``), then the capture of
         the stages on the side stream, as ``torch.cuda.graph`` captures,
-        without its synchronise, garbage collection and cache flush."""
+        without its synchronise and garbage collection, and with its cache
+        flush only when the allocator's unused cache exceeds the device's
+        free memory."""
         dev = inputs["frags"].device
         before = dict(cuda.LAUNCHES)
         t0 = time.perf_counter()
@@ -663,6 +665,13 @@ class Mapper:
                                 if cuda.LAUNCHES[name] != n}
         if self._side is None:
             self._side = torch.cuda.Stream(dev)
+        cached = (torch.cuda.memory_reserved(dev)
+                  - torch.cuda.memory_allocated(dev))
+        if cached > torch.cuda.mem_get_info(dev)[0]:
+            # a capture cannot free the allocator's cache, which keeps the
+            # pools of earlier jobs' freed graphs until it is emptied, as
+            # an allocation outside a capture would on running out
+            torch.cuda.empty_cache()
         main = torch.cuda.current_stream(dev)
         self._side.wait_stream(main)
         with torch.cuda.stream(self._side):

@@ -4,9 +4,11 @@ batch plan from contig lengths against the JAX package's
 ``load_query_fragments``; the rows ``make_batch`` gives with and without
 the memo, and past its host-memory guard; one parse a file a job over two
 jobs in one process, and the reader outside a job as before; a job's TSV,
-``.matrix`` and ``.visual`` byte-equal with the memo and without it."""
+``.matrix`` and ``.visual`` byte-equal with the memo and without it; the
+index build's bookkeeping on its own thread while workers parse."""
 
 import contextlib
+import threading
 
 import numpy as np
 import pytest
@@ -211,3 +213,61 @@ def test_outputs_equal_without_the_memo(panel, tmp_path, monkeypatch, lists,
         got = (tmp_path / f"memo.txt{suf}").read_bytes()
         assert got == (tmp_path / f"parse.txt{suf}").read_bytes(), suf
         assert got.strip(), suf
+
+
+@pytest.mark.parametrize("held", ["fresh", "query_held"])
+def test_index_build_bookkeeping_on_the_build_thread(panel, monkeypatch,
+                                                     held):
+    """The index build's parse on worker threads: the workers run only the
+    uncounted parse; the counters, the memo and the spans are the build's
+    own thread's.  A file whose bytes the memo holds is not parsed again."""
+    from fastani_tpu_torch.index import device_build
+    from fastani_tpu_torch.index.sketch import ReferenceIndex
+
+    _, paths = panel
+    monkeypatch.setattr(device_build.os, "sched_getaffinity",
+                        lambda pid: set(range(4)))
+    main = threading.current_thread()
+    calls, off_thread = [], []
+    real_read = fasta.read_contigs
+
+    def read_contigs(path, upper=True):
+        calls.append((path, threading.current_thread() is main))
+        return real_read(path, upper)
+
+    monkeypatch.setattr(fasta, "read_contigs", read_contigs)
+    for name in ("span", "count", "gauge", "distinct"):
+        real = getattr(spans, name)
+
+        def wrapped(*a, _real=real, **kw):
+            if threading.current_thread() is not main:
+                off_thread.append(a[0])
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(spans, name, wrapped)
+    queries = [paths[1]] if held == "query_held" else []
+    params = Parameters(ref_sequences=paths).finalize()
+    stats = {}
+    with spans.job(stats), fasta.memo(queries):
+        for p in queries:
+            fasta.contigs(p)              # the bytes a job already holds
+        with spans.span("index_build"):
+            ReferenceIndex.build_device(params, device="cpu")
+    c, sp = stats["counters"], stats["spans"]
+    assert not off_thread
+    n = len(paths) - len(queries)
+    assert c["fasta.parses[index.parse]"] == n
+    assert c["fasta.files"] == len(paths)
+    assert c.get("fasta.memo_hits[index.parse]", 0) == len(queries)
+    assert c["index.parse_threads"] == min(3, len(paths))
+    assert c["index.parse_work_ns"] > 0
+    assert 0 <= c["index.parse_ready"] <= n
+    # each file read once: the held one by the job's own read, the others
+    # by the pool's workers
+    assert sorted(p for p, _ in calls) == sorted(paths)
+    assert [p for p, on_main in calls if on_main] == queries
+    build = [i for i, s in enumerate(sp) if s["name"] == "index_build"]
+    parse = [s for s in sp if s["name"] == "index.parse"]
+    assert [s["attrs"]["file"] for s in parse] == list(range(len(paths)))
+    assert all(s["parent"] == build[0] for s in parse)
+    assert all(a["end_ns"] <= b["start_ns"] for a, b in zip(parse, parse[1:]))

@@ -8,6 +8,7 @@ FastANI, with the job's index and key counters."""
 import dataclasses
 import json
 import pathlib
+import threading
 import types
 
 import numpy as np
@@ -20,6 +21,7 @@ from fastani_tpu_torch.config import Parameters
 from fastani_tpu_torch.index import device_build
 from fastani_tpu_torch.index.sketch import ContigInfo, ReferenceIndex
 from fastani_tpu_torch.models import jitmap
+from fastani_tpu_torch.utils import spans
 from tests import synth
 
 torch.set_num_threads(1)
@@ -122,6 +124,139 @@ def test_overflow_rebuild_over_many_flushes(panel_files, jax_index,
         assert bool((tail == pads.get(f, 1 << 30)).all()), f
     assert torch.equal(got.occ_order[n:],
                        torch.arange(n, len(got.occ_order)))
+
+
+@pytest.fixture(scope="module")
+def many_files(tmp_path_factory):
+    """40 reference files of unequal sizes for the parse's worker pool,
+    the first the largest (75 kbp): strains of 2-30 kbp, a draft of 9
+    contigs, a file whose contigs are all shorter than k, and an empty
+    file."""
+    wd = tmp_path_factory.mktemp("torch_index_many")
+    rng = np.random.default_rng(2026)
+    base = synth.random_genome(rng, 75_000)
+    files = [(base,)]
+    for n in rng.integers(2_000, 30_000, 36):
+        files.append((synth.mutate_genome(rng, base[:n], 0.02, 0.0002),))
+    draft = synth.random_genome(rng, 40_000)
+    files.insert(7, tuple(np.split(draft, np.sort(
+        rng.choice(np.arange(500, 39_500, 500), 8, replace=False)))))
+    files.insert(20, tuple(synth.random_genome(rng, n) for n in (3, 15, 9)))
+    files.insert(31, ())
+    paths = []
+    for i, contigs in enumerate(files):
+        paths.append(str(wd / f"f{i:02d}.fa"))
+        synth.write_fasta(paths[-1], [(f"f{i}_{j}", c)
+                                      for j, c in enumerate(contigs)])
+    assert len(paths) == 40
+    return paths
+
+
+@pytest.fixture(scope="module")
+def many_jax(many_files):
+    return JIndex.build_device(JParams(ref_sequences=many_files).finalize())
+
+
+def _cores(monkeypatch, n):
+    monkeypatch.setattr(device_build.os, "sched_getaffinity",
+                        lambda pid: set(range(n)))
+
+
+def _assert_same_index(got, want, n_files):
+    assert got.n_entries == int(want.num_entries)
+    assert got.metadata == [ContigInfo(c.name, c.length)
+                            for c in want.metadata]
+    np.testing.assert_array_equal(got.sequences_by_file,
+                                  want.sequences_by_file)
+    assert len(got.sequences_by_file) == n_files
+    for f in FIELDS:
+        np.testing.assert_array_equal(
+            getattr(got, f).numpy(),
+            np.asarray(getattr(want, f)).astype(np.int64), err_msg=f)
+
+
+@pytest.mark.parametrize("order", ["flush3", "whole", "first_last",
+                                   "one_core", "one_file"])
+def test_pooled_parse_of_many_files_matches_jax(many_files, many_jax,
+                                                monkeypatch, order):
+    """The parse on four workers gives the JAX build's arrays, metadata and
+    file boundaries over 40 files, a few contigs a flush or all in one;
+    with the first (largest) file's parse held until the other files
+    sent with it have finished, the file order still numbers the seqIds.
+    One usable core, or one file, gives a pool of one worker."""
+    _cores(monkeypatch, 1 if order == "one_core" else 5)
+    files, want = many_files, many_jax
+    if order == "one_file":
+        files = many_files[:1]
+        want = JIndex.build_device(JParams(ref_sequences=files).finalize())
+    done = []
+    if order == "first_last":
+        real = device_build._parse_file
+        others = threading.Event()
+
+        def parse_file(path, k, w):
+            if path == many_files[0]:
+                assert others.wait(60)
+            out = real(path, k, w)
+            done.append(path)
+            if len(done) == 8:      # the lookahead past file 0: 2 a worker
+                others.set()
+            return out
+
+        monkeypatch.setattr(device_build, "_parse_file", parse_file)
+    stats = {}
+    with spans.job(stats):
+        got, n_flush, _ = _build(files, monkeypatch,
+                                 3 if order == "flush3" else 2048)
+    c = stats["counters"]
+    n = len(files)
+    assert c["index.parse_threads"] == (4 if n > 1 and order != "one_core"
+                                        else 1)
+    assert c["fasta.parses[index.parse]"] == c["fasta.files"] == n
+    assert 0 <= c["index.parse_ready"] <= n
+    assert c["index.parse_work_ns"] > 0
+    if order == "first_last":
+        # finished ninth: the loop waited for it with eight files sent
+        # past it, and sent no more
+        assert done.index(many_files[0]) == 8
+        assert sorted(done) == many_files
+    assert n_flush > 1 if order == "flush3" else n_flush == 1
+    _assert_same_index(got, want, n)
+
+
+def test_pooled_overflow_rebuild_matches_jax(many_files, many_jax,
+                                             monkeypatch):
+    """An overflow with the pool engaged: the first build flags it, the
+    rebuild (a second pool) gives the JAX build's entries."""
+    _cores(monkeypatch, 5)
+    stats = {}
+    with spans.job(stats):
+        got, _, caps = _build(many_files, monkeypatch, 2, cap_r=20)
+    assert caps == [(20, True), (device_build._ROW, False)]
+    c = stats["counters"]
+    assert c["index.parse_threads"] == 4
+    assert c["fasta.parses[index.parse]"] == 80     # no memo: both builds
+    n = int(many_jax.num_entries)
+    assert got.n_entries == n
+    for f in FIELDS:
+        np.testing.assert_array_equal(
+            getattr(got, f)[:n].numpy(),
+            np.asarray(getattr(many_jax, f))[:n].astype(np.int64),
+            err_msg=f)
+
+
+@pytest.mark.parametrize("cores", [5, 1], ids=["pooled", "one_worker"])
+def test_missing_reference_file_raises_and_leaves_no_worker(
+        many_files, tmp_path, monkeypatch, cores):
+    """A missing file raises FileNotFoundError, as the reader's open does,
+    on the build's thread; the pool is shut down before it propagates."""
+    _cores(monkeypatch, cores)
+    files = many_files[:5] + [str(tmp_path / "missing.fa")] + many_files[5:9]
+    with pytest.raises(FileNotFoundError):
+        ReferenceIndex.build_device(
+            Parameters(ref_sequences=files).finalize(), device="cpu")
+    assert not [t.name for t in threading.enumerate()
+                if t.name.startswith("index.parse")]
 
 
 def test_empty_panel_is_all_pads(tmp_path):

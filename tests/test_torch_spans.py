@@ -226,7 +226,8 @@ def test_fasta_parses_by_purpose(jobs, genomes):
     assert sorted(c) == sorted(
         ["fasta.parses", "fasta.files", "fasta.parses[index.parse]",
          "fasta.memo_hits", "l2.event_slots", "l2.chunks",
-         "l2.chunk_units", "index.bytes", "index.peak_bytes", "l1.key_bits"]
+         "l2.chunk_units", "index.bytes", "index.peak_bytes", "l1.key_bits",
+         "index.parse_threads", "index.parse_ready", "index.parse_work_ns"]
         + [f"fasta.memo_hits[{p}]" for p in readers])
 
 
